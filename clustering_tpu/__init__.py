@@ -1,8 +1,9 @@
-"""clustering_tpu — a TPU-native density-based clustering framework for MD data.
+"""clustering_tpu — a density-based clustering framework for MD data on GPUs.
 
 A from-scratch rebuild of the capabilities of moldyn/Clustering (reference
-v1.3.2) designed for TPU hardware: the O(N^2) density/neighbor/screening
-kernels run as blockwise JAX/XLA/Pallas programs sharded over a device mesh;
+v1.3.2) in JAX: the O(N^2) density/neighbor/screening kernels run as
+pruned Pallas (Triton) or blockwise XLA programs on an NVIDIA GPU, sharded
+over a device mesh when there are several;
 the O(N) / O(S^2) analysis stages (MPP lumping, coring, noise, network,
 filter/stats) are exact host-side implementations that preserve the
 reference's file formats and CLI semantics.
@@ -11,7 +12,7 @@ Layer map (mirrors reference layering, see SURVEY.md):
   cli        -- mode dispatcher (density/network/mpp/coring/noise/filter/stats)
   models/    -- per-mode drivers (reference: src/*_clustering.cpp main()s)
   ops/       -- device compute: populations, free energy, neighbors, screening
-  parallel/  -- mesh construction + shard_map'd multi-chip variants
+  parallel/  -- mesh construction + shard_map'd multi-device variants
   utils/     -- file formats, provenance metadata, logging
 """
 

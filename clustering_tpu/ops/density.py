@@ -1,6 +1,6 @@
 """Per-frame neighbor populations and free energies.
 
-TPU-native equivalent of the reference's population counting
+Equivalent of the reference's population counting
 (CPU: src/density_clustering.cpp:126-195, CUDA: src/density_clustering_cuda.cu:45-182
 with kernel src/density_clustering_cuda_kernels.cu:9-56) and free-energy
 transform (src/density_clustering.cpp:197-212).
@@ -12,7 +12,7 @@ a frame j counts toward pop_i iff  d2(i, j) <= r^2, *including* j == i
 
 Multi-radius counts are computed in one sweep over the pair blocks, like the
 CUDA kernel's per-radius loop. The row-block kernel ``counts_rows`` is shared
-with the sharded multi-chip path (clustering_tpu.parallel.sharded).
+with the sharded multi-device path (clustering_tpu.parallel.sharded).
 """
 
 import functools
@@ -91,13 +91,13 @@ def populations(coords, radii,
     Args:
       coords: (N, D) float32 array (numpy or jax).
       radii: sequence of radii.
-      backend: 'pallas' (fused tile kernel + bbox pruning), 'xla'
-        (blockwise jnp), or 'auto' (pallas on TPU, xla elsewhere).
+      backend: 'pallas' (Triton tile kernel + bbox pruning), 'xla'
+        (blockwise jnp), or 'auto' (ops.pallas_kernels.resolve_backend).
     Returns:
       dict radius -> (N,) int64 numpy array of populations (self included).
     """
-    if backend == "auto":
-        backend = "xla" if jax.default_backend() == "cpu" else "pallas"
+    from .pallas_kernels import resolve_backend
+    backend = resolve_backend(backend)
     if backend == "pallas":
         from .engine import DensityEngine
         eng = DensityEngine(coords, row_block=row_block,

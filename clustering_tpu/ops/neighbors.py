@@ -1,6 +1,6 @@
 """Joint nearest-neighbor + nearest-higher-density-neighbor search.
 
-TPU-native equivalent of the reference NN search
+Equivalent of the reference NN search
 (CPU: src/density_clustering.cpp:230-288, CUDA kernel:
 src/density_clustering_cuda_kernels.cu:58-130). One blockwise sweep produces
 both neighbor lists:
@@ -14,7 +14,7 @@ excluded, following the CUDA backend's ``dist2 != 0`` guard; when a frame has
 no admissible neighbor, (index, dist) = (0, 0.0), matching the CUDA
 backend's zero-initialized output buffers (src/density_clustering_cuda.cu:209-215).
 
-The row-block kernel ``nn_rows`` is shared with the sharded multi-chip path.
+The row-block kernel ``nn_rows`` is shared with the sharded multi-device path.
 """
 
 import functools
@@ -109,8 +109,8 @@ def nearest_neighbors(coords, free_energy,
                       col_block=DEFAULT_COL_BLOCK,
                       backend="auto", prune=True):
     """Returns (nh_idx, nh_d2, nhhd_idx, nhhd_d2) as numpy arrays of len N."""
-    if backend == "auto":
-        backend = "xla" if jax.default_backend() == "cpu" else "pallas"
+    from .pallas_kernels import resolve_backend
+    backend = resolve_backend(backend)
     if backend == "pallas":
         from .engine import DensityEngine
         eng = DensityEngine(coords, row_block=row_block,

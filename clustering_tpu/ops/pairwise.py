@@ -3,17 +3,18 @@
 The N x N frame-pair interaction is the FLOP core of density clustering
 (reference hot loops: src/density_clustering.cpp:155-193 [pops],
 :256-286 [NN]; CUDA tiles: src/density_clustering_cuda_kernels.cu:9-130).
-On TPU we never materialize the N x N matrix in HBM: callers stream column
-blocks through VMEM-sized tiles and reduce on the fly.
+The N x N matrix is never materialized in device memory: callers stream
+column blocks through register- or cache-sized tiles and reduce on the fly.
 
 There is exactly one distance mode: per-dimension accumulation of
-(x_d - y_d)^2 on the VPU, in ascending-d order, matching the reference's
-scalar loop semantics.  The |x|^2 + |y|^2 - 2 x.y MXU identity was
-evaluated and rejected (see docs/PARITY.md and CLAUDE.md): its
-cancellation error ~ulp(|x||y|) is comparable to inter-neighbor distance
-gaps at production densities (flipped ~4% of pops / ~12% of NN indices in
-a 1M-frame trial), it breaks the exact-pruning error budget, and on TPU
-``lax.dot_general`` demotes fp32 operands unless precision=HIGHEST.
+(x_d - y_d)^2 in ascending-d order, matching the reference's scalar loop
+semantics (the GPU compilers contract each step to one fma, like the
+reference CUDA kernel).  The |x|^2 + |y|^2 - 2 x.y matrix-product identity
+was evaluated and rejected (see docs/PARITY.md): its cancellation error
+~ulp(|x||y|) is comparable to inter-neighbor distance gaps at production
+densities (flipped ~4% of pops / ~12% of NN indices in a 1M-frame trial),
+it breaks the exact-pruning error budget, and a float32 matrix product may
+run in TF32 on the GPU unless precision=HIGHEST.
 """
 
 import jax.numpy as jnp

@@ -1,39 +1,40 @@
-"""Fused Pallas TPU kernels for the O(N^2) density-clustering hot loops.
+"""Pallas kernels (Triton route) for the O(N^2) density-clustering sweeps.
 
-TPU-native re-design of the reference CUDA kernels
-(src/density_clustering_cuda_kernels.cu):
+GPU re-design of the reference CUDA kernels
+(src/density_clustering_cuda_kernels.cu) with the repository's exact
+bounding-box tile pruning on top:
 
-  * ``pops_tiles[_sparse/_cross]`` -- multi-radius population counts
+  * ``pops_sweep``  -- multi-radius population counts
     (kernel analog: population_count, :9-56)
-  * ``nn_tiles[_sparse/_cross]``   -- joint NN + NN-higher-density
-    lexicographic running minima (kernel analog:
-    nearest_neighbor_search, :58-130)
-  * ``label_min_sparse[_cross]``   -- neighbor-min label proposals for the
-    screening connected-components sweep (kernel analog: screening,
-    :132-192)
+  * ``nn_sweep``    -- joint NN + NN-higher-density lexicographic minima
+    (kernel analog: nearest_neighbor_search, :58-130)
+  * ``label_sweep`` -- neighbor-min label proposals for the screening
+    connected-components fixpoint (kernel analog: screening, :132-192)
 
-Design notes (see /opt/skills/guides/pallas_guide.md):
-  * Coordinates are stored transposed, (D, N): the frame axis maps onto the
-    128-wide lane dimension, D (typically 2..16 collective variables) onto
-    sublanes. A (row_block x col_block) distance tile is built on the VPU by
-    per-dimension broadcast-subtract-fma -- for small D this beats an MXU
-    matmul, whose contraction dim would be padded from D to 128.
-  * The grid iterates (row_block, col_block) tiles; outputs are indexed by
-    row block only, so Pallas keeps them resident in VMEM while the column
-    grid dimension sweeps (revisiting semantics) -- the running-min /
-    accumulate pattern of the CUDA kernels without any HBM round-trips.
-  * The valid-range scalars (n_valid, n_below) are dynamic operands in SMEM:
-    one compiled kernel serves every screening threshold.
-  * Spatial pruning comes in two forms (see clustering_tpu.ops.pruning,
-    the TPU generalization of the reference's box-grid trick,
-    src/density_clustering.cpp:41-105): the ``_cross`` kernels take a
-    bit-packed per-tile skip matrix in SMEM (dense masked grids, used by
-    the mesh shards), while the default ``_sparse`` kernels iterate an
-    explicit active-tile list through scalar-prefetched index maps --
-    pruned tiles cost nothing at all. Tile lists are chunked to the 1MB
-    SMEM budget and merged across calls.
-  * All tiles stay in fp32 with ascending-d accumulation, preserving the
-    reference's distance semantics bit-for-bit.
+Design (one program per row block, as the reference's one thread per row
+frame and one block per row tile):
+
+  * Coordinates are stored transposed, (D, N_pad), so loads along the
+    frame axis coalesce. A program owns ``row_block`` row frames, keeps
+    their coordinates and running reductions in registers, and walks its
+    run of the row-sorted active-tile list (CSR offsets computed on the
+    device from ``tile_i``; the program loads its own column-block
+    indices). Each active (row_block x col_block) tile is swept in
+    register-sized column sub-tiles.
+  * Distances are fp32 ``diff * diff + acc`` in ascending dimension
+    order, which the compiler contracts to one fma per dimension like the
+    reference kernel (:46). There is no matrix product, so TF32 never
+    enters (see ops/pairwise.py for why the ||x||^2 + ||y||^2 - 2xy
+    identity is rejected).
+  * The bidirectional label sweep (static ``bidir``) evaluates each
+    unordered pair once over an upper-triangular tile list: the row side
+    reduces in registers, the column side goes straight to a full-length
+    output with int32 ``atomic_min``, which commutes, so results stay
+    exact and deterministic. Population counts sweep the full tile list:
+    their column side would need ``atomic_add``, which lost updates in
+    this Triton build and saved only 3% when measured at 2^20 frames.
+  * Every ``pallas_call`` names the Triton route; on the CPU (tests) the
+    same kernels run in the Pallas interpreter, never on the GPU.
 """
 
 import functools
@@ -42,1480 +43,394 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from . import pruning
+from jax.experimental.pallas import triton as plgpu
 
 DEFAULT_ROW_BLOCK = 128
 DEFAULT_COL_BLOCK = 4096
 
-# CPU backends run the kernels through the Pallas interpreter (tests)
-# resolved lazily: touching the backend at import time would break
-# jax.distributed.initialize() (must run before any XLA-backend call)
-_INTERPRET = None
-
-
-def INTERPRET_MODE():
-    global _INTERPRET
-    if _INTERPRET is None:
-        _INTERPRET = jax.default_backend() == "cpu"
-    return _INTERPRET
+# (column sub-tile width, warps per program) of each sweep: every running
+# reduction is an elementwise (row_block x sub) register tile, reduced
+# over the row once per program. Picked by a sweep over sub in {16, 32,
+# 64} x warps in {4, 8} at 2^20 frames on an H100 (wider sub-tiles spill
+# registers and ran up to 25x slower).
+_POPS_TILING = (16, 4)
+_NN_TILING = (16, 8)
+_LABEL_TILING = (32, 4)
 
 _IMAX = np.int32(np.iinfo(np.int32).max)
 _INF = np.float32(np.inf)
 
 
-def _scoped_vmem_limit(acc_bytes, result_bytes, margin=(8 << 20)):
-    """Scoped-vmem budget for a pallas_call that keeps a persistent
-    column accumulator VMEM-resident. XLA's 16MB scoped default is
-    conservative (v5e accepts >=120MB, measured), and its scheduler
-    sometimes stack-allocates the call's whole result tuple + scan
-    carries in scoped vmem too -- observed intermittently as COMPILE
-    failures: pops "scoped allocation 32.68M, limit 12M" (R=1, N=2^20),
-    nn bidir "35.80M, limit 32.00M" (N=2^20). Budget the accumulator +
-    pipeline margin, then add headroom for up to 3 copies of the result
-    tuple, degrading the multiplier until the total stays under the
-    hardware's measured scoped capacity -- past that size XLA cannot
-    stack the tuple in vmem at all and the base margin suffices."""
-    limit = acc_bytes + margin
-    for mult in (3.0, 2.0, 1.25):
-        extras = int(mult * result_bytes)
-        if limit + extras <= (110 << 20):
-            return limit + extras
-    return limit
+def INTERPRET_MODE():
+    """True on the CPU backend, where the kernels run in the Pallas
+    interpreter (tests). Resolved at call time: touching the backend at
+    import would break jax.distributed.initialize(), which must run
+    before any XLA backend call."""
+    return jax.default_backend() == "cpu"
 
 
-def _dist2_tile(x_ref, y_ref, row_block, col_block, n_dim):
-    """(row_block, col_block) squared-distance tile from (D, R) and (D, C)
-    coordinate tiles; ascending-d fp32 accumulation."""
-    acc = jnp.zeros((row_block, col_block), dtype=jnp.float32)
-    for k in range(n_dim):
-        diff = x_ref[k, :].reshape(row_block, 1) - \
-            y_ref[k, :].reshape(1, col_block)
-        # diff*diff + acc lowers to a single VPU fma (matches the CUDA
-        # kernel's fma accumulation, _cuda_kernels.cu:46)
+# backend that "auto" picks on the GPU: the Triton sweeps beat the plain
+# XLA path end to end at 2^20 frames on an H100 (measured per stage by
+# chip_smoke.py; numbers in CHANGES.md)
+GPU_BACKEND = "pallas"
+
+
+def resolve_backend(backend="auto"):
+    """The one place "auto" is decided: "xla" on the CPU, the measured
+    winner on the GPU; any other platform raises. Explicit "pallas" or
+    "xla" pass through."""
+    if backend != "auto":
+        if backend not in ("pallas", "xla"):
+            raise ValueError(f"unknown backend {backend!r}")
+        return backend
+    platform = jax.default_backend()
+    if platform == "cpu":
+        return "xla"
+    if platform == "gpu":
+        return GPU_BACKEND
+    raise RuntimeError(f"no kernel backend for platform {platform!r}"
+                       " (supported: cpu, gpu)")
+
+
+def _params(num_warps):
+    return plgpu.CompilerParams(num_warps=num_warps, num_stages=1)
+
+
+def _sub_width(col_block, sub):
+    sub = min(sub, col_block)
+    if col_block % sub or sub & (sub - 1):
+        raise ValueError(f"col_block {col_block} must be a multiple of a"
+                         f" power-of-two sub-tile ({sub})")
+    return sub
+
+
+def _check_row_block(row_block):
+    if row_block & (row_block - 1):
+        raise ValueError(f"row_block {row_block} must be a power of two")
+
+
+def _csr(tile_i, n_row_blocks):
+    """(n_row_blocks + 1,) int32 offsets of each row block's run in a
+    tile list sorted by ``tile_i`` (entries with tile_i >= n_row_blocks
+    are never visited)."""
+    return jnp.searchsorted(
+        tile_i, jnp.arange(n_row_blocks + 1, dtype=jnp.int32),
+        side="left").astype(jnp.int32)
+
+
+def _flat(a):
+    return jnp.asarray(a, dtype=jnp.int32).reshape(-1)
+
+
+def _dist2(xs, y_ref, c0, sub):
+    """(row_block, sub) squared distances of the program's rows (``xs``,
+    one (row_block,) vector per dimension) to columns [c0, c0 + sub)."""
+    acc = jnp.zeros((xs[0].shape[0], sub), dtype=jnp.float32)
+    for k, x in enumerate(xs):
+        diff = x[:, None] - y_ref[k, pl.ds(c0, sub)][None, :]
         acc = diff * diff + acc
     return acc
 
 
-def _tile_active(skip_ref, words_per_row):
-    """True when the current (i, j) tile is not pruned."""
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    word = skip_ref[i * words_per_row + j // 32]
-    bit = jax.lax.shift_right_logical(word, jnp.int32(j % 32)) & 1
-    return bit == 0
+def _not_repeat(tj_ref, t, start):
+    """False for a tile that repeats the previous entry of the same row
+    block's run (repeat-padded lists): min reductions are idempotent, so
+    the repeat is skipped instead of recomputed."""
+    prev = tj_ref[jnp.maximum(t - 1, 0)]
+    return (t == start) | (prev != tj_ref[t])
 
 
 # ---------------------------------------------------------------------------
 # populations
 # ---------------------------------------------------------------------------
 
-def _pops_kernel(n_valid_ref, skip_ref, xt_ref, yt_ref, radii2_ref, out_ref,
-                 *, row_block, col_block, n_dim, n_radii, words_per_row):
-    j = pl.program_id(1)
+def _pops_kernel(nv_ref, off_ref, tj_ref, rm_ref, x_ref, y_ref, r2_ref,
+                 out_ref, *, row_block, col_block, sub, n_dim, n_radii):
+    i = pl.program_id(0)
+    row0 = i * row_block
+    xs = [x_ref[k, pl.ds(row0, row_block)] for k in range(n_dim)]
+    nv = nv_ref[0]
+    r2 = [r2_ref[r] for r in range(n_radii)]
 
-    @pl.when(j == 0)
-    def _():
-        out_ref[:, :] = jnp.zeros_like(out_ref)
+    def tile(t, acc):
+        j = tj_ref[t]
+        m = rm_ref[t]
 
-    @pl.when(_tile_active(skip_ref, words_per_row))
-    def _():
-        d2 = _dist2_tile(xt_ref, yt_ref, row_block, col_block, n_dim)
-        col0 = j * col_block
-        col_ids = col0 + jax.lax.broadcasted_iota(
-            jnp.int32, (row_block, col_block), 1)
-        valid = col_ids < n_valid_ref[0]
-        for r in range(n_radii):
-            within = jnp.where(valid & (d2 <= radii2_ref[r]), 1, 0)
-            out_ref[r, :] += jnp.sum(within, axis=1).astype(jnp.int32)
+        def sweep(acc):
+            def step(s, acc):
+                c0 = j * col_block + s * sub
+                d2 = _dist2(xs, y_ref, c0, sub)
+                ok = (c0 + jax.lax.broadcasted_iota(jnp.int32, (1, sub), 1)
+                      < nv)
+                # elementwise running counts: the row reduction runs once
+                # per program, not once per sub-tile
+                return tuple(
+                    acc[r] + (ok & (d2 <= r2[r])
+                              & (((m >> r) & 1) != 0)).astype(jnp.int32)
+                    for r in range(n_radii))
 
+            return jax.lax.fori_loop(0, col_block // sub, step, acc)
 
-@functools.partial(jax.jit,
-                   static_argnames=("row_block", "col_block"))
-def pops_tiles_cross(rows_t, cols_t, radii2, n_valid, skip_words,
-                     row_block=DEFAULT_ROW_BLOCK,
-                     col_block=DEFAULT_COL_BLOCK):
-    """Multi-radius population counts of ``rows_t`` frames against the
-    ``cols_t`` frame set (separated so a mesh shard can count its row range
-    against the full replicated matrix).
+        # rmask 0 = no-op pad (tj = -1) or no radius admitted
+        return jax.lax.cond(m != 0, sweep, lambda a: a, acc)
 
-    Args:
-      rows_t: (D, R_pad) fp32 transposed query frames.
-      cols_t: (D, N_pad) fp32 transposed reference frames.
-      radii2: (n_radii,) fp32 squared radii.
-      n_valid: dynamic int32 count of real columns.
-      skip_words: bit-packed per-tile skip matrix for the
-        (R_pad/row_block, N_pad/col_block) grid
-        (clustering_tpu.ops.pruning).
-    Returns:
-      (n_radii, R_pad) int32 counts (self-inclusive, d2 <= r^2).
-    """
-    n_dim, r_pad = rows_t.shape
-    n_pad = cols_t.shape[1]
-    n_radii = radii2.shape[0]
-    grid = (r_pad // row_block, n_pad // col_block)
-    words_per_row = -(-grid[1] // 32)
-    kernel = functools.partial(_pops_kernel, row_block=row_block,
-                               col_block=col_block, n_dim=n_dim,
-                               n_radii=n_radii, words_per_row=words_per_row)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((n_dim, row_block), lambda i, j, *_: (0, i)),
-            pl.BlockSpec((n_dim, col_block), lambda i, j, *_: (0, j)),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ],
-        out_specs=pl.BlockSpec((n_radii, row_block),
-                               lambda i, j, *_: (0, i)),
-    )
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_radii, r_pad), jnp.int32),
-        interpret=INTERPRET_MODE(),
-    )(jnp.asarray([n_valid], dtype=jnp.int32),
-      jnp.asarray(skip_words, dtype=jnp.int32),
-      rows_t, cols_t,
-      jnp.asarray(radii2, dtype=jnp.float32))
-
-
-def pops_tiles(coords_t, radii2, n_valid, skip_words,
-               row_block=DEFAULT_ROW_BLOCK, col_block=DEFAULT_COL_BLOCK):
-    """Single-device all-pairs population counts; see pops_tiles_cross."""
-    return pops_tiles_cross(coords_t, coords_t, radii2, n_valid, skip_words,
-                            row_block=row_block, col_block=col_block)
-
-
-def _pops_sparse_kernel(n_valid_ref, ti_ref, tj_ref, rmask_ref, xt_ref,
-                        yt_ref, radii2_ref, init_ref, out_ref,
-                        *, row_block, col_block, n_dim, n_radii):
-    del init_ref  # aliased into the output (defines unvisited row blocks)
-    k = pl.program_id(0)
-
-    @pl.when((k == 0) | (ti_ref[k] != ti_ref[jnp.maximum(k - 1, 0)]))
-    def _():
-        out_ref[:, :] = jnp.zeros_like(out_ref)
-
-    # rmask bit r set => this tile's bbox distance admits radius r; padding
-    # entries (tj = -1) carry rmask 0 and skip the whole body (counts are
-    # not idempotent, unlike the min-reduction kernels)
-    rmask = rmask_ref[k]
-
-    @pl.when(rmask != 0)
-    def _():
-        jraw = tj_ref[k]
-        d2 = _dist2_tile(xt_ref, yt_ref, row_block, col_block, n_dim)
-        col_ids = (jnp.maximum(jraw, 0) * col_block
-                   + jax.lax.broadcasted_iota(jnp.int32, (1, col_block), 1))
-        valid = col_ids < n_valid_ref[0]
-        for r in range(n_radii):
-            @pl.when((rmask >> r) & 1 != 0)
-            def _(r=r):
-                within = jnp.where(valid & (d2 <= radii2_ref[r]), 1, 0)
-                out_ref[r, :] += jnp.sum(within, axis=1).astype(jnp.int32)
+    acc0 = tuple(jnp.zeros((row_block, sub), jnp.int32)
+                 for _ in range(n_radii))
+    acc = jax.lax.fori_loop(off_ref[i], off_ref[i + 1], tile, acc0)
+    for r in range(n_radii):
+        out_ref[r, pl.ds(row0, row_block)] = jnp.sum(acc[r], axis=1)
 
 
 @functools.partial(jax.jit, static_argnames=("row_block", "col_block"))
-def pops_tiles_sparse_cross(rows_t, cols_t, radii2, n_valid, tile_i, tile_j,
-                            rmask=None,
-                            row_block=DEFAULT_ROW_BLOCK,
-                            col_block=DEFAULT_COL_BLOCK):
-    """All-pairs population counts over an explicit active-tile list.
+def pops_sweep(rows_t, cols_t, radii2, n_valid, tile_i, tile_j, rmask=None,
+               row_block=DEFAULT_ROW_BLOCK, col_block=DEFAULT_COL_BLOCK):
+    """Multi-radius population counts over a row-sorted active-tile list.
 
-    Counts are not idempotent under repeats, so (unlike the min-reduction
-    kernels) the list must contain each active tile exactly once; pad to
-    the bucket size with entries (ti=last row block, tj=-1), which the
-    kernel treats as no-ops. Diagonal tiles are always active (their bbox
-    distance is zero), so every real row block is visited and initialized;
-    fully-padded tail blocks are trimmed by the caller.
-
-    ``rmask`` (optional per-tile int32 bitmask, bit r set when the tile's
-    bbox distance admits radius r) lets the kernel skip the compare+count
-    for radii a tile cannot contribute to; None counts every radius on
-    every listed tile (pads still skip via tj = -1).
+    Args:
+      rows_t: (D, R_pad) fp32 transposed row frames.
+      cols_t: (D, N_pad) fp32 transposed column frames.
+      radii2: (n_radii,) fp32 squared radii.
+      n_valid: int32 count of real columns.
+      tile_i, tile_j: int32 tile lists of any shape, sorted by tile_i
+        once flattened; each active tile exactly once (counts are not
+        idempotent). Pads are (any sorted ti, tj = -1) entries.
+      rmask: per-tile int32 bitmask (bit r = count radius r in this
+        tile; 0 skips the tile). None counts every radius on every entry
+        with tj >= 0.
+    Returns:
+      (n_radii, R_pad) int32 counts of columns with d2 <= r^2, self
+      included.
     """
+    _check_row_block(row_block)
+    sub, warps = _POPS_TILING
+    sub = _sub_width(col_block, sub)
     n_dim, r_pad = rows_t.shape
     n_radii = radii2.shape[0]
-    n_tiles = tile_i.shape[0]
+    nrb = r_pad // row_block
+    ti, tj = _flat(tile_i), _flat(tile_j)
     if rmask is None:
-        all_r = jnp.int32((1 << n_radii) - 1)
-        rmask = jnp.where(jnp.asarray(tile_j, dtype=jnp.int32) >= 0,
-                          all_r, jnp.int32(0))
-    kernel = functools.partial(_pops_sparse_kernel, row_block=row_block,
-                               col_block=col_block, n_dim=n_dim,
-                               n_radii=n_radii)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((n_dim, row_block),
-                         lambda k, nv, ti, tj, rm: (0, ti[k])),
-            pl.BlockSpec((n_dim, col_block),
-                         lambda k, nv, ti, tj, rm: (0, jnp.maximum(tj[k],
-                                                                   0))),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((n_radii, row_block),
-                         lambda k, nv, ti, tj, rm: (0, ti[k])),
-        ],
-        out_specs=pl.BlockSpec((n_radii, row_block),
-                               lambda k, nv, ti, tj, rm: (0, ti[k])),
-    )
-    init = jnp.zeros((n_radii, r_pad), dtype=jnp.int32)
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n_radii, r_pad), jnp.int32),
-        input_output_aliases={7: 0},
-        interpret=INTERPRET_MODE(),
-    )(jnp.asarray([n_valid], dtype=jnp.int32),
-      jnp.asarray(tile_i, dtype=jnp.int32),
-      jnp.asarray(tile_j, dtype=jnp.int32),
-      jnp.asarray(rmask, dtype=jnp.int32),
-      rows_t, cols_t,
-      jnp.asarray(radii2, dtype=jnp.float32), init)
-
-
-def pops_tiles_sparse(coords_t, radii2, n_valid, tile_i, tile_j,
-                      rmask=None,
-                      row_block=DEFAULT_ROW_BLOCK,
-                      col_block=DEFAULT_COL_BLOCK):
-    """Single-device all-pairs form; see pops_tiles_sparse_cross."""
-    return pops_tiles_sparse_cross(coords_t, coords_t, radii2, n_valid,
-                                   tile_i, tile_j, rmask=rmask,
-                                   row_block=row_block,
-                                   col_block=col_block)
-
-
-def _pops_bidir_kernel(win_ref, ti_ref, tj_ref, rmask_ref, xt_ref,
-                       yt_ref, radii2_ref, init_ref,
-                       out_ref, col_acc,
-                       *, row_block, col_block, n_dim, n_radii):
-    """Bidirectional population counts over an upper-triangular tile
-    list: each strictly-upper pair (r < c) is evaluated once and adds 1
-    to BOTH frames' counts (row side into the ti-indexed output, column
-    side into a CONSTANT-index-map output of one n_radii-row group per
-    column block, VMEM-resident for the whole grid and flushed once).
-    Self-pairs are excluded by the strict mask; the caller adds the
-    diagonal +1.
-
-    ``win_ref`` = [n_valid, col_base]: the column accumulator covers
-    column blocks [col_base, col_base + col_span) -- large N splits into
-    column-range partitions, so VMEM never caps the frame count."""
-    del init_ref  # aliased into the row output in HBM
-    k = pl.program_id(0)
-    jraw = tj_ref[k]
-    j = jnp.maximum(jraw, 0)
-    i = ti_ref[k]
-    cb0 = win_ref[1]
-
-    @pl.when(k == 0)
-    def _():
-        col_acc[:, :] = jnp.zeros_like(col_acc)
-
-    @pl.when((k == 0) | (i != ti_ref[jnp.maximum(k - 1, 0)]))
-    def _():
-        out_ref[:, :] = jnp.zeros_like(out_ref)
-
-    rmask = rmask_ref[k]
-
-    @pl.when(rmask != 0)
-    def _():
-        d2 = _dist2_tile(xt_ref, yt_ref, row_block, col_block, n_dim)
-        col_ids = j * col_block + jax.lax.broadcasted_iota(
-            jnp.int32, (row_block, col_block), 1)
-        row_ids = i * row_block + jax.lax.broadcasted_iota(
-            jnp.int32, (row_block, col_block), 0)
-        # strictly-upper: each unordered pair counted from exactly one
-        # orientation even in tiles straddling the diagonal
-        base = (col_ids > row_ids) & (col_ids < win_ref[0])
-        for r in range(n_radii):
-            @pl.when((rmask >> r) & 1 != 0)
-            def _(r=r):
-                within = jnp.where(base & (d2 <= radii2_ref[r]), 1, 0)
-                out_ref[r, :] += jnp.sum(within, axis=1).astype(jnp.int32)
-                sl = pl.ds((j - cb0) * n_radii + r, 1)
-                col_acc[sl, :] += jnp.sum(within, axis=0,
-                                          keepdims=True).astype(jnp.int32)
-
-
-@functools.partial(jax.jit, static_argnames=("row_block", "col_block",
-                                             "col_span"))
-def _pops_bidir_call(coords_t, radii2, n_valid, tile_i, tile_j, rmask,
-                     col_base, col_span,
-                     row_block=DEFAULT_ROW_BLOCK,
-                     col_block=DEFAULT_COL_BLOCK):
-    """One bidirectional pops dispatch whose column accumulator covers
-    column blocks [col_base, col_base + col_span). The tile list must
-    only contain tiles with tj in that range (plus (ti, -1, 0) no-op
-    pads). Returns (rows (n_radii, N_pad), cols (n_radii, span*cb))."""
-    n_dim, n_pad = coords_t.shape
-    n_radii = radii2.shape[0]
-    n_tiles = tile_i.shape[0]
-    kernel = functools.partial(_pops_bidir_kernel, row_block=row_block,
-                               col_block=col_block, n_dim=n_dim,
-                               n_radii=n_radii)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=4,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((n_dim, row_block),
-                         lambda k, nv, ti, tj, rm: (0, ti[k])),
-            pl.BlockSpec((n_dim, col_block),
-                         lambda k, nv, ti, tj, rm: (0, jnp.maximum(tj[k],
-                                                                   0))),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((n_radii, row_block),
-                         lambda k, nv, ti, tj, rm: (0, ti[k])),
-        ],
-        out_specs=[
-            pl.BlockSpec((n_radii, row_block),
-                         lambda k, nv, ti, tj, rm: (0, ti[k])),
-            pl.BlockSpec((col_span * n_radii, col_block),
-                         lambda k, nv, ti, tj, rm: (0, 0)),
-        ],
-    )
-    init = jnp.zeros((n_radii, n_pad), dtype=jnp.int32)
-    acc_bytes = col_span * n_radii * col_block * 4
-    params = pltpu.CompilerParams(vmem_limit_bytes=_scoped_vmem_limit(
-        acc_bytes, n_radii * n_pad * 4 + acc_bytes))
-    out, acc = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((n_radii, n_pad), jnp.int32),
-                   jax.ShapeDtypeStruct((col_span * n_radii, col_block),
-                                        jnp.int32)],
-        input_output_aliases={7: 0},
-        compiler_params=params,
-        interpret=INTERPRET_MODE(),
-    )(jnp.stack([jnp.asarray(n_valid, dtype=jnp.int32),
-                 jnp.asarray(col_base, dtype=jnp.int32)]),
-      jnp.asarray(tile_i, dtype=jnp.int32),
-      jnp.asarray(tile_j, dtype=jnp.int32),
-      jnp.asarray(rmask, dtype=jnp.int32),
-      coords_t, coords_t,
-      jnp.asarray(radii2, dtype=jnp.float32), init)
-    # acc rows are [r0(b+0); ...; r_{R-1}(b+0); r0(b+1); ...]
-    cols = acc.reshape(col_span, n_radii, col_block).transpose(1, 0, 2) \
-        .reshape(n_radii, col_span * col_block)
-    return out, cols
-
-
-def pops_tiles_sparse_bidir(coords_t, radii2, n_valid, tile_i, tile_j,
-                            rmask,
-                            row_block=DEFAULT_ROW_BLOCK,
-                            col_block=DEFAULT_COL_BLOCK):
-    """Full-range upper-triangular bidirectional population counts: ~2x
-    fewer distance evaluations than the symmetric tile list at identical
-    results. The tile list must contain each active upper-triangle-
-    intersecting tile exactly once ((j+1)*col_block > i*row_block),
-    row-major sorted, padded with (ti=last, tj=-1, rmask=0) no-ops.
-    Returns (n_radii, N_pad) int32 counts WITHOUT self-pairs (the caller
-    adds the diagonal +1 exactly once)."""
-    ncb = coords_t.shape[1] // col_block
-    out, cols = _pops_bidir_call(coords_t, radii2, n_valid, tile_i,
-                                 tile_j, rmask, jnp.int32(0), ncb,
-                                 row_block=row_block, col_block=col_block)
-    return out + cols
-
-
-@functools.partial(jax.jit, static_argnames=("row_block", "col_block",
-                                             "col_span"))
-def _pops_bidir_group_part(coords_t, radii2, n_valid, tile_i, tile_j,
-                           rmask, col_base, col_span,
-                           row_block=DEFAULT_ROW_BLOCK,
-                           col_block=DEFAULT_COL_BLOCK):
-    def body(acc, tt):
-        ti_c, tj_c, rm_c = tt
-        rows, cols = _pops_bidir_call(coords_t, radii2, n_valid,
-                                      ti_c, tj_c, rm_c, col_base, col_span,
-                                      row_block=row_block,
-                                      col_block=col_block)
-        return (acc[0] + rows, acc[1] + cols), None
-
-    n_radii = radii2.shape[0]
-    init = (jnp.zeros((n_radii, coords_t.shape[1]), dtype=jnp.int32),
-            jnp.zeros((n_radii, col_span * col_block), dtype=jnp.int32))
-    acc, _ = jax.lax.scan(body, init, (tile_i, tile_j, rmask))
-    return acc
-
-
-@functools.partial(jax.jit, static_argnames=("lo", "n_pad"))
-def _place_cols_sum(cols, lo, n_pad):
-    """Embed a partition's (R, width) column counts into (R, N_pad) at
-    offset ``lo`` (zeros outside)."""
-    n_radii, w = cols.shape
-    return jnp.concatenate(
-        [jnp.zeros((n_radii, lo), jnp.int32), cols,
-         jnp.zeros((n_radii, n_pad - lo - w), jnp.int32)], axis=1)
-
-
-def _chunk_flat_noop(ti, tj, rm):
-    """Re-chunk flat (ti, tj, rmask) arrays into stacked (n_chunks,
-    bucket) triples, padding with (last ti, -1, 0) no-ops (counts are
-    not idempotent, unlike the min-reduction kernels)."""
-    n = len(ti)
-    bucket = pruning.chunk_bucket(n)
-    n_chunks = -(-n // bucket)
-    pad = n_chunks * bucket - n
-    ti_p = np.concatenate([ti, np.full(pad, ti[-1], np.int32)])
-    tj_p = np.concatenate([tj, np.full(pad, -1, np.int32)])
-    rm_p = np.concatenate([rm, np.zeros(pad, np.int32)])
-    return (ti_p.reshape(n_chunks, bucket), tj_p.reshape(n_chunks, bucket),
-            rm_p.reshape(n_chunks, bucket))
-
-
-def pops_tiles_bidir_all(coords_t, radii2, n_valid, tile_i, tile_j, rmask,
-                         row_block=DEFAULT_ROW_BLOCK,
-                         col_block=DEFAULT_COL_BLOCK,
-                         max_acc_bytes=None):
-    """Sum of the bidirectional pops sweep over stacked (n_chunks,
-    bucket) upper-triangular tile chunks, grouped into bounded-size
-    dispatches, plus the diagonal self-count (once). When the full-range
-    column accumulator would exceed ``max_acc_bytes`` of VMEM, the tile
-    list splits into column-range partitions -- no frame-count cap."""
-    n_radii = radii2.shape[0]
-    tile_i = np.asarray(tile_i, dtype=np.int32)
-    tile_j = np.asarray(tile_j, dtype=np.int32)
-    rmask = np.asarray(rmask, dtype=np.int32)
-    n_pad = coords_t.shape[1]
-    ncb = n_pad // col_block
-    budget = BIDIR_ACC_BYTES if max_acc_bytes is None else max_acc_bytes
-    span = max(int(budget // (col_block * 4 * n_radii)), 1)
-    g = DISPATCH_CHUNK_GROUP
-
-    def run_range(ti_st, tj_st, rm_st, base, width):
-        n_chunks = ti_st.shape[0]
-        acc = None
-        for lo in range(0, n_chunks, g):
-            ti_g, tj_g, rm_g = (ti_st[lo:lo + g], tj_st[lo:lo + g],
-                                rm_st[lo:lo + g])
-            if ti_g.shape[0] < g and n_chunks > g:
-                pad = g - ti_g.shape[0]
-                ti_g = np.concatenate([ti_g, np.repeat(ti_g[-1:], pad, 0)])
-                tj_g = np.concatenate(
-                    [tj_g, np.full((pad,) + tj_g.shape[1:], -1, np.int32)])
-                rm_g = np.concatenate(
-                    [rm_g, np.zeros((pad,) + rm_g.shape[1:], np.int32)])
-            part = _pops_bidir_group_part(
-                coords_t, radii2, n_valid, ti_g, tj_g, rm_g,
-                jnp.int32(base), width,
-                row_block=row_block, col_block=col_block)
-            acc = part if acc is None else (_acc_add(acc[0], part[0]),
-                                            _acc_add(acc[1], part[1]))
-        rows, cols = acc
-        return _acc_add(rows, _place_cols_sum(cols, base * col_block,
-                                              n_pad))
-
-    if span >= ncb:
-        acc = run_range(tile_i, tile_j, rmask, 0, ncb)
+        rm = jnp.where(tj >= 0, jnp.int32((1 << n_radii) - 1), 0)
     else:
-        # column-range partitioning: flatten, drop no-op pads, split by
-        # tj range (each real tile lands in exactly one partition --
-        # counts are summed, so exactly-once coverage is preserved)
-        ti_f = tile_i.reshape(-1)
-        tj_f = tile_j.reshape(-1)
-        rm_f = rmask.reshape(-1)
-        keep = tj_f >= 0
-        ti_f, tj_f, rm_f = ti_f[keep], tj_f[keep], rm_f[keep]
-        acc = None
-        for base, width, sel in pruning.iter_col_windows(tj_f, ncb, span):
-            ti_p, tj_p, rm_p = _chunk_flat_noop(ti_f[sel], tj_f[sel],
-                                                rm_f[sel])
-            part = run_range(ti_p, tj_p, rm_p, base, width)
-            acc = part if acc is None else _acc_add(acc, part)
-    return _add_self_count(acc, jnp.int32(n_valid))
-
-
-def _group_pad(arrs, g, fills):
-    """Pad stacked chunk arrays to a full DISPATCH_CHUNK_GROUP (device or
-    host inputs; jnp ops keep device-resident tile lists on device)."""
-    pad = g - arrs[0].shape[0]
-    out = []
-    for a, fill in zip(arrs, fills):
-        if fill == "repeat":
-            out.append(jnp.concatenate([a, jnp.repeat(a[-1:], pad, 0)]))
-        else:
-            out.append(jnp.concatenate(
-                [a, jnp.full((pad,) + a.shape[1:], fill, a.dtype)]))
-    return out
-
-
-def pops_tiles_bidir_windows(coords_t, radii2, n_valid, windows,
-                             row_block=DEFAULT_ROW_BLOCK,
-                             col_block=DEFAULT_COL_BLOCK):
-    """pops_tiles_bidir_all for pre-partitioned column windows whose
-    stacked (n_chunks, bucket) tile chunks may live ON DEVICE (the big-N
-    device planner, pruning.tile_list_device): no host tile traffic.
-    ``windows`` iterates (base, width, ti_st, tj_st, rm_st)."""
-    n_pad = coords_t.shape[1]
-    g = DISPATCH_CHUNK_GROUP
-    acc = None
-    for base, width, ti_st, tj_st, rm_st in windows:
-        n_chunks = ti_st.shape[0]
-        part = None
-        for lo in range(0, n_chunks, g):
-            ti_g, tj_g, rm_g = (ti_st[lo:lo + g], tj_st[lo:lo + g],
-                                rm_st[lo:lo + g])
-            if ti_g.shape[0] < g and n_chunks > g:
-                ti_g, tj_g, rm_g = _group_pad(
-                    (ti_g, tj_g, rm_g), g, ("repeat", -1, 0))
-            p = _pops_bidir_group_part(
-                coords_t, radii2, n_valid, jnp.asarray(ti_g),
-                jnp.asarray(tj_g), jnp.asarray(rm_g),
-                jnp.int32(base), width,
-                row_block=row_block, col_block=col_block)
-            part = p if part is None else (_acc_add(part[0], p[0]),
-                                           _acc_add(part[1], p[1]))
-        rows, cols = part
-        full = _acc_add(rows, _place_cols_sum(cols, base * col_block,
-                                              n_pad))
-        acc = full if acc is None else _acc_add(acc, full)
-    return _add_self_count(acc, jnp.int32(n_valid))
-
-
-def nn_tiles_bidir_windows(coords_t, fe, orig_ids, n_valid, windows,
-                           row_block=DEFAULT_ROW_BLOCK,
-                           col_block=DEFAULT_COL_BLOCK):
-    """nn_tiles_bidir_all for pre-partitioned column windows with
-    device-resident stacked tile chunks (big-N device planner).
-    ``windows`` iterates (base, width, ti_st, tj_st)."""
-    n_pad = coords_t.shape[1]
-    g = DISPATCH_CHUNK_GROUP
-    out = None
-    for base, width, ti_st, tj_st in windows:
-        n_chunks = ti_st.shape[0]
-        acc = None
-        for lo in range(0, n_chunks, g):
-            ti_g, tj_g = ti_st[lo:lo + g], tj_st[lo:lo + g]
-            if ti_g.shape[0] < g and n_chunks > g:
-                ti_g, tj_g = _group_pad((ti_g, tj_g), g,
-                                        ("repeat", "repeat"))
-            od, oj, cd, cj = _nn_bidir_group_part(
-                coords_t, fe, orig_ids, n_valid, jnp.asarray(ti_g),
-                jnp.asarray(tj_g), jnp.int32(base), width,
-                row_block=row_block, col_block=col_block)
-            p = ((od, oj), (cd, cj))
-            acc = p if acc is None else (
-                _lex_min2(acc[0], p[0]), _lex_min2(acc[1], p[1]))
-        rows, cols = acc
-        colf = _place_cols(cols[0], cols[1], base * col_block, n_pad)
-        part = _lex_min2(rows, colf)
-        out = part if out is None else _lex_min2(out, part)
-    return out
-
-
-@jax.jit
-def _add_self_count(acc, n_valid):
-    """Diagonal +1 per valid frame (d2(i,i)=0 <= r^2 for every radius)."""
-    n_pad = acc.shape[1]
-    self_cnt = (jnp.arange(n_pad, dtype=jnp.int32)
-                < n_valid)[None, :].astype(jnp.int32)
-    return acc + self_cnt
+        rm = jnp.where(tj >= 0, _flat(rmask), 0)
+    kernel = functools.partial(
+        _pops_kernel, row_block=row_block, col_block=col_block, sub=sub,
+        n_dim=n_dim, n_radii=n_radii)
+    return pl.pallas_call(
+        kernel, grid=(nrb,),
+        out_shape=jax.ShapeDtypeStruct((n_radii, r_pad), jnp.int32),
+        compiler_params=_params(warps), backend="triton",
+        interpret=INTERPRET_MODE(), name="pops_sweep",
+    )(jnp.asarray(n_valid, jnp.int32).reshape(1), _csr(ti, nrb),
+      jnp.maximum(tj, 0), rm, rows_t, cols_t,
+      jnp.asarray(radii2, jnp.float32))
 
 
 # ---------------------------------------------------------------------------
 # nearest neighbors
 # ---------------------------------------------------------------------------
 
-def _nn_kernel(n_valid_ref, skip_ref, xt_ref, yt_ref, fe_x_ref, fe_y_ref,
-               oid_y_ref, nh_d_ref, nh_j_ref, hd_d_ref, hd_j_ref,
-               *, row_block, col_block, n_dim, words_per_row):
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _():
-        nh_d_ref[:, :] = jnp.full_like(nh_d_ref, _INF)
-        nh_j_ref[:, :] = jnp.full_like(nh_j_ref, _IMAX)
-        hd_d_ref[:, :] = jnp.full_like(hd_d_ref, _INF)
-        hd_j_ref[:, :] = jnp.full_like(hd_j_ref, _IMAX)
-
-    @pl.when(_tile_active(skip_ref, words_per_row))
-    def _():
-        d2 = _dist2_tile(xt_ref, yt_ref, row_block, col_block, n_dim)
-        col0 = j * col_block
-        col_ids = col0 + jax.lax.broadcasted_iota(
-            jnp.int32, (row_block, col_block), 1)
-        valid = (col_ids < n_valid_ref[0]) & (d2 > 0.0)
-        oid_y = oid_y_ref[0, :].reshape(1, col_block)
-        d2_nh = jnp.where(valid, d2, _INF)
-        # lexicographic (distance, original index) running minimum: matches
-        # the reference's ascending-j strict-'<' scan exactly regardless of
-        # the processing order used here; inf rows never latch an index
-        bd = jnp.min(d2_nh, axis=1)
-        bo = jnp.min(jnp.where(d2_nh == bd[:, None], oid_y, _IMAX), axis=1)
-        upd = ((bd < nh_d_ref[0, :]) | ((bd == nh_d_ref[0, :])
-                                        & (bo < nh_j_ref[0, :]))) \
-            & (bd < _INF)
-        nh_d_ref[0, :] = jnp.where(upd, bd, nh_d_ref[0, :])
-        nh_j_ref[0, :] = jnp.where(upd, bo, nh_j_ref[0, :])
-
-        fe_x = fe_x_ref[0, :].reshape(row_block, 1)
-        fe_y = fe_y_ref[0, :].reshape(1, col_block)
-        d2_hd = jnp.where(fe_y < fe_x, d2_nh, _INF)
-        hd = jnp.min(d2_hd, axis=1)
-        ho = jnp.min(jnp.where(d2_hd == hd[:, None], oid_y, _IMAX), axis=1)
-        updh = ((hd < hd_d_ref[0, :]) | ((hd == hd_d_ref[0, :])
-                                         & (ho < hd_j_ref[0, :]))) \
-            & (hd < _INF)
-        hd_d_ref[0, :] = jnp.where(updh, hd, hd_d_ref[0, :])
-        hd_j_ref[0, :] = jnp.where(updh, ho, hd_j_ref[0, :])
+def _lex_update(d_old, j_old, d_new, j_new):
+    """Running lexicographic (distance, original index) minimum; an
+    infinite distance never latches an index (no neighbor stays
+    (inf, IMAX) for the callers)."""
+    upd = (((d_new < d_old) | ((d_new == d_old) & (j_new < j_old)))
+           & (d_new < _INF))
+    return jnp.where(upd, d_new, d_old), jnp.where(upd, j_new, j_old)
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("row_block", "col_block"))
-def nn_tiles_cross(rows_t, fe_rows, cols_t, fe_cols, orig_ids, n_valid,
-                   skip_words, row_block=DEFAULT_ROW_BLOCK,
-                   col_block=DEFAULT_COL_BLOCK):
-    """Joint NN / NN-higher-density search of ``rows_t`` frames against the
-    ``cols_t`` frame set (separated so a mesh shard can search its row
-    range against the full replicated matrix).
+def _nn_kernel(nv_ref, off_ref, tj_ref, x_ref, fe_x_ref, y_ref, fe_y_ref,
+               oid_ref, out_d_ref, out_j_ref,
+               *, row_block, col_block, sub, n_dim):
+    i = pl.program_id(0)
+    start = off_ref[i]
+    row0 = i * row_block
+    xs = [x_ref[k, pl.ds(row0, row_block)] for k in range(n_dim)]
+    fe_x = fe_x_ref[0, pl.ds(row0, row_block)][:, None]
+    nv = nv_ref[0]
+
+    def tile(t, carry):
+        j = tj_ref[t]
+
+        def sweep(carry):
+            def step(s, carry):
+                nd, nj, hd, hj = carry
+                c0 = j * col_block + s * sub
+                d2 = _dist2(xs, y_ref, c0, sub)
+                col_ids = c0 + jax.lax.broadcasted_iota(
+                    jnp.int32, (1, sub), 1)
+                oid = jnp.broadcast_to(oid_ref[0, pl.ds(c0, sub)][None, :],
+                                       (row_block, sub))
+                # zero-distance pairs (self, exact duplicates) excluded
+                # like the reference's dist2 != 0 guard
+                d2n = jnp.where((col_ids < nv) & (d2 > 0.0), d2, _INF)
+                nd, nj = _lex_update(nd, nj, d2n, oid)
+                fe_y = fe_y_ref[0, pl.ds(c0, sub)][None, :]
+                hd, hj = _lex_update(hd, hj,
+                                     jnp.where(fe_y < fe_x, d2n, _INF), oid)
+                return nd, nj, hd, hj
+
+            return jax.lax.fori_loop(0, col_block // sub, step, carry)
+
+        return jax.lax.cond(_not_repeat(tj_ref, t, start), sweep,
+                            lambda c: c, carry)
+
+    # elementwise running lexicographic minima over (row, sub-column)
+    # slots; the row reduction runs once per program
+    inf = jnp.full((row_block, sub), _INF, jnp.float32)
+    imax = jnp.full((row_block, sub), _IMAX, jnp.int32)
+    nd, nj, hd, hj = jax.lax.fori_loop(start, off_ref[i + 1], tile,
+                                       (inf, imax, inf, imax))
+    for q, (d, jj) in enumerate(((nd, nj), (hd, hj))):
+        best = jnp.min(d, axis=1)
+        out_d_ref[q, pl.ds(row0, row_block)] = best
+        out_j_ref[q, pl.ds(row0, row_block)] = jnp.min(
+            jnp.where(d == best[:, None], jj, _IMAX), axis=1)
+
+
+@functools.partial(jax.jit, static_argnames=("row_block", "col_block"))
+def nn_sweep(rows_t, fe_rows, cols_t, fe_cols, orig_ids, n_valid, tile_i,
+             tile_j, row_block=DEFAULT_ROW_BLOCK,
+             col_block=DEFAULT_COL_BLOCK):
+    """Joint NN / NN-higher-density search of ``rows_t`` against the
+    ``cols_t`` frame set over a row-sorted active-tile list (repeats of
+    the previous entry are skipped, so lists may be repeat-padded).
 
     Args:
-      rows_t: (D, R_pad) fp32 transposed query frames (any frame order).
-      fe_rows: (1, R_pad) fp32 free energies of the query frames.
-      cols_t: (D, N_pad) fp32 transposed reference frames.
+      rows_t: (D, R_pad) fp32 transposed row frames (any frame order).
+      fe_rows: (1, R_pad) fp32 free energies of the row frames.
+      cols_t: (D, N_pad) fp32 transposed column frames.
       fe_cols: (1, N_pad) fp32 free energies (+inf on padded columns).
-      orig_ids: (1, N_pad) int32 original frame index of each column
-        (drives exact smallest-original-index tie-breaking and is what the
-        index outputs report).
-      n_valid: dynamic int32 count of real columns.
-      skip_words: bit-packed per-tile skip matrix.
+      orig_ids: (1, N_pad) int32 original frame index of each column:
+        ties break toward the smallest original index (the reference's
+        ascending-j strict '<' scan) and the index outputs report it.
+      n_valid: int32 count of real columns.
     Returns:
-      (nh_d, nh_j, hd_d, hd_j), each (1, R_pad) in the row order of
-      ``rows_t``; distances +inf (index IMAX) where no admissible
-      neighbor exists (or where pruning removed all tiles -- callers must
-      combine passes accordingly).
+      (out_d, out_j): (2, R_pad) stacked [nh; hd] squared distances and
+      original indices; (+inf, IMAX) where no admissible neighbor lies in
+      the listed tiles.
     """
+    _check_row_block(row_block)
+    sub, warps = _NN_TILING
+    sub = _sub_width(col_block, sub)
     n_dim, r_pad = rows_t.shape
-    n_pad = cols_t.shape[1]
-    grid = (r_pad // row_block, n_pad // col_block)
-    words_per_row = -(-grid[1] // 32)
+    nrb = r_pad // row_block
+    ti, tj = _flat(tile_i), _flat(tile_j)
     kernel = functools.partial(_nn_kernel, row_block=row_block,
-                               col_block=col_block, n_dim=n_dim,
-                               words_per_row=words_per_row)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((n_dim, row_block), lambda i, j, *_: (0, i)),
-            pl.BlockSpec((n_dim, col_block), lambda i, j, *_: (0, j)),
-            pl.BlockSpec((1, row_block), lambda i, j, *_: (0, i)),
-            pl.BlockSpec((1, col_block), lambda i, j, *_: (0, j)),
-            pl.BlockSpec((1, col_block), lambda i, j, *_: (0, j)),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, row_block), lambda i, j, *_: (0, i)),
-            pl.BlockSpec((1, row_block), lambda i, j, *_: (0, i)),
-            pl.BlockSpec((1, row_block), lambda i, j, *_: (0, i)),
-            pl.BlockSpec((1, row_block), lambda i, j, *_: (0, i)),
-        ],
-    )
+                               col_block=col_block, sub=sub, n_dim=n_dim)
     return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((1, r_pad), jnp.float32),
-            jax.ShapeDtypeStruct((1, r_pad), jnp.int32),
-            jax.ShapeDtypeStruct((1, r_pad), jnp.float32),
-            jax.ShapeDtypeStruct((1, r_pad), jnp.int32),
-        ],
-        interpret=INTERPRET_MODE(),
-    )(jnp.asarray([n_valid], dtype=jnp.int32),
-      jnp.asarray(skip_words, dtype=jnp.int32),
-      rows_t, cols_t, fe_rows, fe_cols, orig_ids)
+        kernel, grid=(nrb,),
+        out_shape=[jax.ShapeDtypeStruct((2, r_pad), jnp.float32),
+                   jax.ShapeDtypeStruct((2, r_pad), jnp.int32)],
+        compiler_params=_params(warps), backend="triton",
+        interpret=INTERPRET_MODE(), name="nn_sweep",
+    )(jnp.asarray(n_valid, jnp.int32).reshape(1), _csr(ti, nrb), tj,
+      rows_t, fe_rows, cols_t, fe_cols, orig_ids)
 
 
-def nn_tiles(coords_t, fe, orig_ids, n_valid, skip_words,
-             row_block=DEFAULT_ROW_BLOCK, col_block=DEFAULT_COL_BLOCK):
-    """Single-device all-pairs NN search; see nn_tiles_cross."""
-    return nn_tiles_cross(coords_t, fe, coords_t, fe, orig_ids, n_valid,
-                          skip_words, row_block=row_block,
-                          col_block=col_block)
+# ---------------------------------------------------------------------------
+# screening label sweep
+# ---------------------------------------------------------------------------
 
-
-# chunks per device dispatch: bounds single-program runtime (very long
-# grids can trip runtime watchdogs) without extra compiles in the common
-# single-group case
-DISPATCH_CHUNK_GROUP = 128
-
-
-@functools.partial(jax.jit, static_argnames=("row_block", "col_block"))
-def _pops_sparse_group(coords_t, radii2, n_valid, tile_i, tile_j, rmask,
-                       row_block, col_block):
-    def body(acc, tt):
-        ti_c, tj_c, rm_c = tt
-        part = pops_tiles_sparse(coords_t, radii2, n_valid, ti_c, tj_c,
-                                 rmask=rm_c,
-                                 row_block=row_block, col_block=col_block)
-        return acc + part, None
-
-    init = jnp.zeros((radii2.shape[0], coords_t.shape[1]), dtype=jnp.int32)
-    acc, _ = jax.lax.scan(body, init, (tile_i, tile_j, rmask))
-    return acc
-
-
-@jax.jit
-def _acc_add(a, b):
-    return a + b
-
-
-def pops_tiles_sparse_all(coords_t, radii2, n_valid, tile_i, tile_j,
-                          rmask=None,
-                          row_block=DEFAULT_ROW_BLOCK,
-                          col_block=DEFAULT_COL_BLOCK):
-    """Sum of pops_tiles_sparse over stacked (n_chunks, bucket) tile
-    chunks (each chunk holds each active tile at most once, padded with
-    no-op entries), grouped into bounded-size dispatches."""
-    n_radii = radii2.shape[0]
-    tile_i = np.asarray(tile_i, dtype=np.int32)
-    tile_j = np.asarray(tile_j, dtype=np.int32)
-    if rmask is None:
-        rmask = np.where(tile_j >= 0, np.int32((1 << n_radii) - 1),
-                         np.int32(0))
+def _label_kernel(sc_ref, md2_ref, off_ref, tj_ref, dcol_ref, drow_ref,
+                  x_ref, y_ref, lab_ref, *rest, row_block, col_block, sub,
+                  n_dim, bidir, masked_atomics):
+    if bidir:
+        _, out_ref, col_ref = rest
     else:
-        rmask = np.asarray(rmask, dtype=np.int32)
-    n_chunks = tile_i.shape[0]
-    g = DISPATCH_CHUNK_GROUP
-    if n_chunks <= g:
-        return _pops_sparse_group(coords_t, radii2, n_valid,
-                                  tile_i, tile_j, rmask,
-                                  row_block=row_block, col_block=col_block)
-    acc = None
-    for lo in range(0, n_chunks, g):
-        ti_g, tj_g, rm_g = (tile_i[lo:lo + g], tile_j[lo:lo + g],
-                            rmask[lo:lo + g])
-        if ti_g.shape[0] < g:
-            # pad the last group with no-op chunks (one compiled shape)
-            pad = g - ti_g.shape[0]
-            ti_g = np.concatenate([ti_g, np.repeat(ti_g[-1:], pad, 0)])
-            tj_g = np.concatenate(
-                [tj_g, np.full((pad,) + tj_g.shape[1:], -1, np.int32)])
-            rm_g = np.concatenate(
-                [rm_g, np.zeros((pad,) + rm_g.shape[1:], np.int32)])
-        part = _pops_sparse_group(coords_t, radii2, n_valid,
-                                  ti_g, tj_g, rm_g,
-                                  row_block=row_block, col_block=col_block)
-        acc = part if acc is None else _acc_add(acc, part)
-    return acc
+        (out_ref,) = rest
+    i = pl.program_id(0)
+    start = off_ref[i]
+    row0 = i * row_block
+    n_below = sc_ref[0]
+    md2 = md2_ref[0]
+    xs = [x_ref[k, pl.ds(row0, row_block)] for k in range(n_dim)]
+    row_ok = (row0 + jax.lax.broadcasted_iota(
+        jnp.int32, (row_block, 1), 0)) < n_below
+    if bidir:
+        lab_x = lab_ref[pl.ds(row0, row_block)][:, None]
+        row_dirty = drow_ref[i] != 0
+
+    def tile(t, m):
+        j = tj_ref[t]
+
+        def sweep(m):
+            def step(s, m):
+                c0 = j * col_block + s * sub
+                d2 = _dist2(xs, y_ref, c0, sub)
+                col_ids = c0 + jax.lax.broadcasted_iota(
+                    jnp.int32, (1, sub), 1)
+                adj = (d2 < md2) & (col_ids < n_below) & row_ok
+                lab_y = lab_ref[pl.ds(c0, sub)][None, :]
+                m = jnp.minimum(m, jnp.where(adj, lab_y, _IMAX))
+                if bidir:
+                    cm = jnp.min(jnp.where(adj, lab_x, _IMAX), axis=0)
+                    plgpu.atomic_min(
+                        col_ref, (pl.ds(c0, sub),), cm,
+                        mask=(cm != _IMAX) if masked_atomics else None)
+                return m
+
+            return jax.lax.fori_loop(0, col_block // sub, step, m)
+
+        # a tile whose labels did not change since the previous sweep can
+        # only re-propose equivalences already folded into the union
+        dirty = dcol_ref[j] != 0
+        if bidir:
+            dirty = dirty | row_dirty
+        return jax.lax.cond(dirty & _not_repeat(tj_ref, t, start), sweep,
+                            lambda a: a, m)
+
+    # elementwise running minimum; the row reduction runs once
+    m = jax.lax.fori_loop(start, off_ref[i + 1], tile,
+                          jnp.full((row_block, sub), _IMAX, jnp.int32))
+    out_ref[pl.ds(row0, row_block)] = jnp.min(m, axis=1)
 
 
-@functools.partial(jax.jit, static_argnames=("row_block", "col_block"))
-def nn_tiles_sparse_all_cross(rows_t, fe_rows, cols_t, fe_cols, orig_ids,
-                              n_valid, tile_i, tile_j,
-                              row_block=DEFAULT_ROW_BLOCK,
-                              col_block=DEFAULT_COL_BLOCK):
-    """Lexicographic merge of nn_tiles_sparse_cross over stacked tile
-    chunks in one dispatch (row set distinct from column set -- used by
-    the tiered phase-2 sweeps and mesh shards)."""
-    def body(acc, tt):
-        ti_c, tj_c = tt
-        d1, j1 = nn_tiles_sparse_cross(rows_t, fe_rows, cols_t, fe_cols,
-                                       orig_ids, n_valid, ti_c, tj_c,
-                                       row_block=row_block,
-                                       col_block=col_block)
-        d0, j0 = acc
-        upd = (d1 < d0) | ((d1 == d0) & (j1 < j0))
-        return (jnp.where(upd, d1, d0), jnp.where(upd, j1, j0)), None
+@functools.partial(jax.jit, static_argnames=("bidir", "row_block",
+                                             "col_block"))
+def label_sweep(coords_t, labels, n_below, max_dist2, tile_i, tile_j,
+                dirty_col=None, dirty_row=None, bidir=False,
+                row_block=DEFAULT_ROW_BLOCK, col_block=DEFAULT_COL_BLOCK):
+    """Neighbor-min label proposals over a row-sorted active-tile list of
+    the FE-ordered frame matrix (repeat-padded lists allowed).
 
-    r_pad = rows_t.shape[1]
-    init = (jnp.full((2, r_pad), _INF, dtype=jnp.float32),
-            jnp.full((2, r_pad), _IMAX, dtype=jnp.int32))
-    acc, _ = jax.lax.scan(body, init, (tile_i, tile_j))
-    return acc
+    Frames i, j < n_below are adjacent iff d2(i, j) < max_dist2; each
+    row's proposal is the minimum label over its adjacent columns
+    (IMAX where none). ``dirty_col`` (ncb,) / ``dirty_row`` (nrb,) gate
+    tiles by whether their column (row) block's labels changed since the
+    previous sweep; None sweeps everything. With ``bidir`` the list holds
+    upper-triangular tiles and each tile also proposes its row labels to
+    its columns (the gate is then column OR row dirty).
 
-
-@jax.jit
-def _lex_min2(a, b):
-    """Elementwise lexicographic (d, j) minimum of two stacked results."""
-    d0, j0 = a
-    d1, j1 = b
-    upd = (d1 < d0) | ((d1 == d0) & (j1 < j0))
-    return jnp.where(upd, d1, d0), jnp.where(upd, j1, j0)
-
-
-def nn_tiles_sparse_all(coords_t, fe, orig_ids, n_valid, tile_i, tile_j,
-                        row_block=DEFAULT_ROW_BLOCK,
-                        col_block=DEFAULT_COL_BLOCK):
-    """Lexicographic merge of nn_tiles_sparse over stacked tile chunks,
-    grouped into bounded-size dispatches."""
-    tile_i = np.asarray(tile_i, dtype=np.int32)
-    tile_j = np.asarray(tile_j, dtype=np.int32)
-    n_chunks = tile_i.shape[0]
-    g = DISPATCH_CHUNK_GROUP
-    if n_chunks <= g:
-        return nn_tiles_sparse_all_cross(
-            coords_t, fe, coords_t, fe, orig_ids, n_valid, tile_i, tile_j,
-            row_block=row_block, col_block=col_block)
-    acc = None
-    for lo in range(0, n_chunks, g):
-        ti_g, tj_g = tile_i[lo:lo + g], tile_j[lo:lo + g]
-        if ti_g.shape[0] < g:
-            # pad the last group with repeated chunks (idempotent min)
-            pad = g - ti_g.shape[0]
-            ti_g = np.concatenate([ti_g, np.repeat(ti_g[-1:], pad, 0)])
-            tj_g = np.concatenate([tj_g, np.repeat(tj_g[-1:], pad, 0)])
-        part = nn_tiles_sparse_all_cross(
-            coords_t, fe, coords_t, fe, orig_ids, n_valid, ti_g, tj_g,
-            row_block=row_block, col_block=col_block)
-        acc = part if acc is None else _lex_min2(acc, part)
-    return acc
-
-
-# budget for the bidirectional kernels' VMEM-resident column
-# accumulators; runs whose full-range accumulator would exceed it are
-# split into column-range partitions (any N supported -- the round-2
-# fallback to symmetric sweeps at >4-5M frames is gone)
-BIDIR_ACC_BYTES = 64 << 20
-
-
-@functools.partial(jax.jit, static_argnames=("row_block", "col_block",
-                                             "col_span"))
-def _nn_bidir_group_part(coords_t, fe, orig_ids, n_valid, tile_i, tile_j,
-                         col_base, col_span, row_block, col_block):
-    """Scan _nn_bidir_call over stacked chunks of ONE column-range
-    partition, folding row and column minima separately."""
-    def body(acc, tt):
-        ti_c, tj_c = tt
-        od, oj, cd, cj = _nn_bidir_call(
-            coords_t, fe, orig_ids, n_valid, ti_c, tj_c, col_base,
-            col_span, row_block=row_block, col_block=col_block)
-        rows = _lex_min2((acc[0], acc[1]), (od, oj))
-        cols = _lex_min2((acc[2], acc[3]), (cd, cj))
-        return (rows[0], rows[1], cols[0], cols[1]), None
-
-    n_pad = coords_t.shape[1]
-    w = col_span * col_block
-    init = (jnp.full((2, n_pad), _INF, dtype=jnp.float32),
-            jnp.full((2, n_pad), _IMAX, dtype=jnp.int32),
-            jnp.full((2, w), _INF, dtype=jnp.float32),
-            jnp.full((2, w), _IMAX, dtype=jnp.int32))
-    acc, _ = jax.lax.scan(body, init, (tile_i, tile_j))
-    return acc
-
-
-@functools.partial(jax.jit, static_argnames=("lo", "n_pad"))
-def _place_cols(cd, cj, lo, n_pad):
-    """Embed a partition's (2, width) column minima into (2, N_pad) at
-    offset ``lo`` (identity elements outside)."""
-    w = cd.shape[1]
-    return (jnp.concatenate(
-        [jnp.full((2, lo), _INF, jnp.float32), cd,
-         jnp.full((2, n_pad - lo - w), _INF, jnp.float32)], axis=1),
-        jnp.concatenate(
-        [jnp.full((2, lo), _IMAX, jnp.int32), cj,
-         jnp.full((2, n_pad - lo - w), _IMAX, jnp.int32)], axis=1))
-
-
-def _chunk_flat(ti, tj, pad_j=None):
-    """Re-chunk flat tile index arrays into a stacked (n_chunks, bucket)
-    pair with power-of-two buckets (pruning.chunk_bucket, the one policy);
-    pads repeat the last tile (``pad_j`` overrides the pad tj value)."""
-    n = len(ti)
-    bucket = pruning.chunk_bucket(n)
-    n_chunks = -(-n // bucket)
-    pad = n_chunks * bucket - n
-    ti_p = np.concatenate([ti, np.full(pad, ti[-1], np.int32)])
-    tj_p = np.concatenate(
-        [tj, np.full(pad, tj[-1] if pad_j is None else pad_j, np.int32)])
-    return (ti_p.reshape(n_chunks, bucket), tj_p.reshape(n_chunks, bucket))
-
-
-def nn_tiles_bidir_all(coords_t, fe, orig_ids, n_valid, tile_i, tile_j,
-                       row_block=DEFAULT_ROW_BLOCK,
-                       col_block=DEFAULT_COL_BLOCK,
-                       max_acc_bytes=None):
-    """Lexicographic merge of the bidirectional NN sweep over stacked
-    tile chunks, grouped into bounded-size dispatches (each chunk's row
-    and column minima fold through the idempotent lexicographic min).
-    When the full-range column accumulator would exceed ``max_acc_bytes``
-    of VMEM, the tile list is split into column-range partitions, each
-    dispatched with its own accumulator window -- no frame-count cap
-    (the reference's tiling covers any N, _cuda_kernels.cu:25-31; so
-    does this)."""
-    tile_i = np.asarray(tile_i, dtype=np.int32)
-    tile_j = np.asarray(tile_j, dtype=np.int32)
-    n_pad = coords_t.shape[1]
-    ncb = n_pad // col_block
-    budget = BIDIR_ACC_BYTES if max_acc_bytes is None else max_acc_bytes
-    span = max(int(budget // (col_block * 16)), 1)
-    g = DISPATCH_CHUNK_GROUP
-
-    def run_range(ti_st, tj_st, base, width):
-        n_chunks = ti_st.shape[0]
-        acc = None
-        for lo in range(0, n_chunks, g):
-            ti_g, tj_g = ti_st[lo:lo + g], tj_st[lo:lo + g]
-            if ti_g.shape[0] < g and n_chunks > g:
-                pad = g - ti_g.shape[0]
-                ti_g = np.concatenate([ti_g, np.repeat(ti_g[-1:], pad, 0)])
-                tj_g = np.concatenate([tj_g, np.repeat(tj_g[-1:], pad, 0)])
-            od, oj, cd, cj = _nn_bidir_group_part(
-                coords_t, fe, orig_ids, n_valid, ti_g, tj_g,
-                jnp.int32(base), width,
-                row_block=row_block, col_block=col_block)
-            part = ((od, oj), (cd, cj))
-            acc = part if acc is None else (
-                _lex_min2(acc[0], part[0]), _lex_min2(acc[1], part[1]))
-        rows, cols = acc
-        colf = _place_cols(cols[0], cols[1], base * col_block, n_pad)
-        return _lex_min2(rows, colf)
-
-    if span >= ncb:
-        return run_range(tile_i, tile_j, 0, ncb)
-    # column-range partitioning: flatten, drop repeat-padding duplicates,
-    # split by tj range (each real tile lands in exactly one partition)
-    ti_f = tile_i.reshape(-1)
-    tj_f = tile_j.reshape(-1)
-    keep = np.ones(len(ti_f), dtype=bool)
-    keep[1:] = (ti_f[1:] != ti_f[:-1]) | (tj_f[1:] != tj_f[:-1])
-    ti_f, tj_f = ti_f[keep], tj_f[keep]
-    out = None
-    for base, width, sel in pruning.iter_col_windows(tj_f, ncb, span):
-        ti_p, tj_p = _chunk_flat(ti_f[sel], tj_f[sel])
-        part = run_range(ti_p, tj_p, base, width)
-        out = part if out is None else _lex_min2(out, part)
-    return out
-
-
-def _nn_sparse_kernel(n_valid_ref, ti_ref, tj_ref, xt_ref, yt_ref,
-                      fe_x_ref, fe_y_ref, oid_y_ref, init_d_ref, init_j_ref,
-                      out_d_ref, out_j_ref,
-                      *, row_block, col_block, n_dim):
-    del init_d_ref, init_j_ref  # aliased into the outputs
-    k = pl.program_id(0)
-
-    @pl.when((k == 0) | (ti_ref[k] != ti_ref[jnp.maximum(k - 1, 0)]))
-    def _():
-        out_d_ref[:, :] = jnp.full_like(out_d_ref, _INF)
-        out_j_ref[:, :] = jnp.full_like(out_j_ref, _IMAX)
-
-    # pad entries repeat the previous tile verbatim; their DMA is already
-    # elided by Pallas (unchanged block index) -- elide the compute too
-    @pl.when((k == 0)
-             | (ti_ref[k] != ti_ref[jnp.maximum(k - 1, 0)])
-             | (tj_ref[k] != tj_ref[jnp.maximum(k - 1, 0)]))
-    def _():
-        j = tj_ref[k]
-        d2 = _dist2_tile(xt_ref, yt_ref, row_block, col_block, n_dim)
-        col_ids = j * col_block + jax.lax.broadcasted_iota(
-            jnp.int32, (row_block, col_block), 1)
-        valid = (col_ids < n_valid_ref[0]) & (d2 > 0.0)
-        oid_y = oid_y_ref[0, :].reshape(1, col_block)
-        d2_nh = jnp.where(valid, d2, _INF)
-        bd = jnp.min(d2_nh, axis=1)
-        bo = jnp.min(jnp.where(d2_nh == bd[:, None], oid_y, _IMAX), axis=1)
-        # never latch an index at infinite distance (an all-masked row's
-        # bd == inf would otherwise tie with the init and record a real
-        # index; "no neighbor" must stay (inf, IMAX) for the callers)
-        upd = ((bd < out_d_ref[0, :]) | ((bd == out_d_ref[0, :])
-                                         & (bo < out_j_ref[0, :]))) \
-            & (bd < _INF)
-        out_d_ref[0, :] = jnp.where(upd, bd, out_d_ref[0, :])
-        out_j_ref[0, :] = jnp.where(upd, bo, out_j_ref[0, :])
-
-        fe_x = fe_x_ref[0, :].reshape(row_block, 1)
-        fe_y = fe_y_ref[0, :].reshape(1, col_block)
-        d2_hd = jnp.where(fe_y < fe_x, d2_nh, _INF)
-        hd = jnp.min(d2_hd, axis=1)
-        ho = jnp.min(jnp.where(d2_hd == hd[:, None], oid_y, _IMAX), axis=1)
-        updh = ((hd < out_d_ref[1, :]) | ((hd == out_d_ref[1, :])
-                                          & (ho < out_j_ref[1, :]))) \
-            & (hd < _INF)
-        out_d_ref[1, :] = jnp.where(updh, hd, out_d_ref[1, :])
-        out_j_ref[1, :] = jnp.where(updh, ho, out_j_ref[1, :])
-
-
-@functools.partial(jax.jit, static_argnames=("row_block", "col_block"))
-def nn_tiles_sparse_cross(rows_t, fe_rows, cols_t, fe_cols, orig_ids,
-                          n_valid, tile_i, tile_j,
-                          row_block=DEFAULT_ROW_BLOCK,
-                          col_block=DEFAULT_COL_BLOCK):
-    """All-pairs NN search over an explicit active-tile list (row-major
-    sorted; pad by repeating the last tile -- the lexicographic min is
-    idempotent). Unvisited row blocks report +inf/IMAX via the aliased
-    init buffers (required when the tile list is chunked across calls).
-
-    Returns (out_d, out_j): (2, N_pad) stacked [nh; hd] distance and
-    original-index arrays."""
-    n_dim, r_pad = rows_t.shape
-    n_tiles = tile_i.shape[0]
-    kernel = functools.partial(_nn_sparse_kernel, row_block=row_block,
-                               col_block=col_block, n_dim=n_dim)
-    row_spec = pl.BlockSpec((1, row_block),
-                            lambda k, nv, ti, tj: (0, ti[k]))
-    col_spec = pl.BlockSpec((1, col_block),
-                            lambda k, nv, ti, tj: (0, tj[k]))
-    out_spec = pl.BlockSpec((2, row_block),
-                            lambda k, nv, ti, tj: (0, ti[k]))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((n_dim, row_block),
-                         lambda k, nv, ti, tj: (0, ti[k])),
-            pl.BlockSpec((n_dim, col_block),
-                         lambda k, nv, ti, tj: (0, tj[k])),
-            row_spec, col_spec, col_spec,
-            out_spec, out_spec,
-        ],
-        out_specs=[out_spec, out_spec],
-    )
-    init_d = jnp.full((2, r_pad), _INF, dtype=jnp.float32)
-    init_j = jnp.full((2, r_pad), _IMAX, dtype=jnp.int32)
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((2, r_pad), jnp.float32),
-            jax.ShapeDtypeStruct((2, r_pad), jnp.int32),
-        ],
-        input_output_aliases={8: 0, 9: 1},
-        interpret=INTERPRET_MODE(),
-    )(jnp.asarray([n_valid], dtype=jnp.int32),
-      jnp.asarray(tile_i, dtype=jnp.int32),
-      jnp.asarray(tile_j, dtype=jnp.int32),
-      rows_t, cols_t, fe_rows, fe_cols, orig_ids, init_d, init_j)
-
-
-def nn_tiles_sparse(coords_t, fe, orig_ids, n_valid, tile_i, tile_j,
-                    row_block=DEFAULT_ROW_BLOCK,
-                    col_block=DEFAULT_COL_BLOCK):
-    """Single-device all-pairs form; see nn_tiles_sparse_cross."""
-    return nn_tiles_sparse_cross(coords_t, fe, coords_t, fe, orig_ids,
-                                 n_valid, tile_i, tile_j,
-                                 row_block=row_block, col_block=col_block)
-
-
-def _nn_bidir_kernel(win_ref, ti_ref, tj_ref, xt_ref, yt_ref,
-                     fe_x_ref, fe_y_ref, oid_x_ref, oid_y_ref,
-                     init_d_ref, init_j_ref,
-                     out_d_ref, out_j_ref, acc_d, acc_j,
-                     *, row_block, col_block, n_dim):
-    """Bidirectional NN sweep with the column accumulators as CONSTANT-
-    index-map outputs: the (2*col_span, col_block) [nh; hd]-interleaved
-    column minima stay VMEM-resident for the whole grid and flush to HBM
-    exactly once at the end -- no per-step scratch->output copies and no
-    per-step column-block write-backs (measured equal to the copy-based
-    round-2 kernel at N=2^20, and strictly less per-step work).
-
-    ``win_ref`` = [n_valid, col_base]: the accumulator covers column
-    blocks [col_base, col_base + col_span) -- large N runs split into
-    column-range partitions so VMEM never caps the frame count
-    (the tile list of a call must only hold tiles in its range)."""
-    del init_d_ref, init_j_ref  # aliased into the row outputs
-    k = pl.program_id(0)
-    i = ti_ref[k]
-    j = tj_ref[k]
-    cb0 = win_ref[1]
-
-    @pl.when(k == 0)
-    def _():
-        acc_d[:, :] = jnp.full_like(acc_d, _INF)
-        acc_j[:, :] = jnp.full_like(acc_j, _IMAX)
-
-    @pl.when((k == 0) | (i != ti_ref[jnp.maximum(k - 1, 0)]))
-    def _():
-        out_d_ref[:, :] = jnp.full_like(out_d_ref, _INF)
-        out_j_ref[:, :] = jnp.full_like(out_j_ref, _IMAX)
-
-    @pl.when((k == 0)
-             | (i != ti_ref[jnp.maximum(k - 1, 0)])
-             | (j != tj_ref[jnp.maximum(k - 1, 0)]))
-    def _():
-        d2 = _dist2_tile(xt_ref, yt_ref, row_block, col_block, n_dim)
-        col_ids = j * col_block + jax.lax.broadcasted_iota(
-            jnp.int32, (row_block, col_block), 1)
-        row_ids = i * row_block + jax.lax.broadcasted_iota(
-            jnp.int32, (row_block, col_block), 0)
-        nv = win_ref[0]
-        oid_y = oid_y_ref[0, :].reshape(1, col_block)
-        oid_x = oid_x_ref[0, :].reshape(row_block, 1)
-        fe_x = fe_x_ref[0, :].reshape(row_block, 1)
-        fe_y = fe_y_ref[0, :].reshape(1, col_block)
-
-        # -- row side (identical to _nn_sparse_kernel) --
-        valid = (col_ids < nv) & (d2 > 0.0)
-        d2_nh = jnp.where(valid, d2, _INF)
-        bd = jnp.min(d2_nh, axis=1)
-        bo = jnp.min(jnp.where(d2_nh == bd[:, None], oid_y, _IMAX), axis=1)
-        upd = ((bd < out_d_ref[0, :]) | ((bd == out_d_ref[0, :])
-                                         & (bo < out_j_ref[0, :]))) \
-            & (bd < _INF)
-        out_d_ref[0, :] = jnp.where(upd, bd, out_d_ref[0, :])
-        out_j_ref[0, :] = jnp.where(upd, bo, out_j_ref[0, :])
-        d2_hd = jnp.where(fe_y < fe_x, d2_nh, _INF)
-        hd = jnp.min(d2_hd, axis=1)
-        ho = jnp.min(jnp.where(d2_hd == hd[:, None], oid_y, _IMAX), axis=1)
-        updh = ((hd < out_d_ref[1, :]) | ((hd == out_d_ref[1, :])
-                                          & (ho < out_j_ref[1, :]))) \
-            & (hd < _INF)
-        out_d_ref[1, :] = jnp.where(updh, hd, out_d_ref[1, :])
-        out_j_ref[1, :] = jnp.where(updh, ho, out_j_ref[1, :])
-
-        # -- column side: candidates are this tile's rows --
-        valid_t = (row_ids < nv) & (d2 > 0.0)
-        d2_nh_t = jnp.where(valid_t, d2, _INF)
-        cd = jnp.min(d2_nh_t, axis=0, keepdims=True)
-        co = jnp.min(jnp.where(d2_nh_t == cd, oid_x, _IMAX), axis=0,
-                     keepdims=True)
-        sl = pl.ds((j - cb0) * 2, 1)
-        cur_d = acc_d[sl, :]
-        cur_j = acc_j[sl, :]
-        updc = ((cd < cur_d) | ((cd == cur_d) & (co < cur_j))) \
-            & (cd < _INF)
-        acc_d[sl, :] = jnp.where(updc, cd, cur_d)
-        acc_j[sl, :] = jnp.where(updc, co, cur_j)
-        d2_hd_t = jnp.where(fe_x < fe_y, d2_nh_t, _INF)
-        chd = jnp.min(d2_hd_t, axis=0, keepdims=True)
-        cho = jnp.min(jnp.where(d2_hd_t == chd, oid_x, _IMAX), axis=0,
-                      keepdims=True)
-        slh = pl.ds((j - cb0) * 2 + 1, 1)
-        cur_dh = acc_d[slh, :]
-        cur_jh = acc_j[slh, :]
-        updch = ((chd < cur_dh) | ((chd == cur_dh) & (cho < cur_jh))) \
-            & (chd < _INF)
-        acc_d[slh, :] = jnp.where(updch, chd, cur_dh)
-        acc_j[slh, :] = jnp.where(updch, cho, cur_jh)
-
-
-@functools.partial(jax.jit, static_argnames=("row_block", "col_block",
-                                             "col_span"))
-def _nn_bidir_call(coords_t, fe, orig_ids, n_valid, tile_i, tile_j,
-                   col_base, col_span,
-                   row_block=DEFAULT_ROW_BLOCK,
-                   col_block=DEFAULT_COL_BLOCK):
-    """One bidirectional NN dispatch whose column accumulator covers
-    column blocks [col_base, col_base + col_span). The tile list must
-    only contain tiles with tj in that range (plus repeat padding).
-    Returns (out_d, out_j, colc_d, colc_j): row side (2, N_pad), column
-    side (2, col_span * col_block) at the partition's offset."""
-    n_dim, n_pad = coords_t.shape
-    n_tiles = tile_i.shape[0]
-    kernel = functools.partial(_nn_bidir_kernel, row_block=row_block,
-                               col_block=col_block, n_dim=n_dim)
-    row_spec = pl.BlockSpec((1, row_block),
-                            lambda k, nv, ti, tj: (0, ti[k]))
-    col_spec = pl.BlockSpec((1, col_block),
-                            lambda k, nv, ti, tj: (0, tj[k]))
-    out_spec = pl.BlockSpec((2, row_block),
-                            lambda k, nv, ti, tj: (0, ti[k]))
-    acc_spec = pl.BlockSpec((2 * col_span, col_block),
-                            lambda k, nv, ti, tj: (0, 0))
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((n_dim, row_block),
-                         lambda k, nv, ti, tj: (0, ti[k])),
-            pl.BlockSpec((n_dim, col_block),
-                         lambda k, nv, ti, tj: (0, tj[k])),
-            row_spec, col_spec, row_spec, col_spec,
-            out_spec, out_spec,
-        ],
-        out_specs=[out_spec, out_spec, acc_spec, acc_spec],
-    )
-    init_d = jnp.full((2, n_pad), _INF, dtype=jnp.float32)
-    init_j = jnp.full((2, n_pad), _IMAX, dtype=jnp.int32)
-    acc_bytes = col_span * col_block * 16
-    params = pltpu.CompilerParams(vmem_limit_bytes=_scoped_vmem_limit(
-        acc_bytes, 16 * n_pad + acc_bytes, margin=(16 << 20)))
-    out_d, out_j, acc_d, acc_j = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((2, n_pad), jnp.float32),
-            jax.ShapeDtypeStruct((2, n_pad), jnp.int32),
-            jax.ShapeDtypeStruct((2 * col_span, col_block), jnp.float32),
-            jax.ShapeDtypeStruct((2 * col_span, col_block), jnp.int32),
-        ],
-        input_output_aliases={9: 0, 10: 1},
-        compiler_params=params,
-        interpret=INTERPRET_MODE(),
-    )(jnp.stack([jnp.asarray(n_valid, dtype=jnp.int32),
-                 jnp.asarray(col_base, dtype=jnp.int32)]),
-      jnp.asarray(tile_i, dtype=jnp.int32),
-      jnp.asarray(tile_j, dtype=jnp.int32),
-      coords_t, coords_t, fe, fe, orig_ids, orig_ids,
-      init_d, init_j)
-    # acc rows are [nh(b+0); hd(b+0); nh(b+1); ...] -> (2, span*col_block)
-    colc_d = acc_d.reshape(col_span, 2, col_block).transpose(1, 0, 2) \
-        .reshape(2, col_span * col_block)
-    colc_j = acc_j.reshape(col_span, 2, col_block).transpose(1, 0, 2) \
-        .reshape(2, col_span * col_block)
-    return out_d, out_j, colc_d, colc_j
-
-
-@functools.partial(jax.jit, static_argnames=("row_block", "col_block"))
-def nn_tiles_sparse_bidir(coords_t, fe, orig_ids, n_valid,
-                          tile_i, tile_j,
-                          row_block=DEFAULT_ROW_BLOCK,
-                          col_block=DEFAULT_COL_BLOCK):
-    """Full-range bidirectional NN sweep (column accumulator spans every
-    column block). Contract: upper-triangular closure tile list,
-    row-major sorted, repeat-padded. Returns the lexicographic merge of
-    the row-side and column-side minima, (2, N_pad)."""
-    n_pad = coords_t.shape[1]
-    ncb = n_pad // col_block
-    out_d, out_j, colc_d, colc_j = _nn_bidir_call(
-        coords_t, fe, orig_ids, n_valid, tile_i, tile_j,
-        jnp.int32(0), ncb, row_block=row_block, col_block=col_block)
-    return _lex_min2((out_d, out_j), (colc_d, colc_j))
-
-
-# ---------------------------------------------------------------------------
-# screening neighbor-min sweep
-# ---------------------------------------------------------------------------
-
-# ---------------------------------------------------------------------------
-# sparse-tile screening sweep (tile list driven)
-# ---------------------------------------------------------------------------
-
-def _label_min_sparse_kernel(win_ref, max_d2_ref, ti_ref, tj_ref, dirty_ref,
-                             xt_ref, yt_ref, lab_y_ref, init_ref, out_ref,
-                             *, row_block, col_block, n_dim):
-    del init_ref  # aliased into the output in HBM (covers unvisited rows)
-    k = pl.program_id(0)
-    n_below = win_ref[0]
-    row_block_offset = win_ref[1]
-    max_dist2 = max_d2_ref[0]
-    i = ti_ref[k]
-    j = tj_ref[k]
-
-    # out VMEM is write-back only: initialize on the first visit of each
-    # row block (the tile list is sorted by row block)
-    @pl.when((k == 0) | (i != ti_ref[jnp.maximum(k - 1, 0)]))
-    def _():
-        out_ref[:, :] = jnp.full_like(out_ref, _IMAX)
-
-    # skip compute for repeat-padded duplicate tiles (DMA already elided)
-    # and for tiles whose column block's labels did not change since the
-    # previous sweep: their proposals were already folded into the union,
-    # so re-sweeping them cannot produce a new equivalence (the fixpoint
-    # loop re-marks every block dirty on its first sweep)
-    @pl.when((dirty_ref[j] != 0)
-             & ((k == 0)
-                | (i != ti_ref[jnp.maximum(k - 1, 0)])
-                | (j != tj_ref[jnp.maximum(k - 1, 0)])))
-    def _():
-        d2 = _dist2_tile(xt_ref, yt_ref, row_block, col_block, n_dim)
-        col_ids = j * col_block + jax.lax.broadcasted_iota(
-            jnp.int32, (row_block, col_block), 1)
-        row_ids = ((row_block_offset + i) * row_block
-                   + jax.lax.broadcasted_iota(
-                       jnp.int32, (row_block, col_block), 0))
-        adj = (d2 < max_dist2) & (col_ids < n_below) & (row_ids < n_below)
-        cand = jnp.where(adj, lab_y_ref[0, :].reshape(1, col_block), _IMAX)
-        out_ref[0, :] = jnp.minimum(out_ref[0, :], jnp.min(cand, axis=1))
-
-
-@functools.partial(jax.jit, static_argnames=("row_block", "col_block"))
-def label_min_sparse_cross(rows_t, cols_t, labels, n_below, max_dist2,
-                           tile_i, tile_j, row_block_offset, dirty=None,
-                           row_block=DEFAULT_ROW_BLOCK,
-                           col_block=DEFAULT_COL_BLOCK):
-    """Neighbor-min proposals over an explicit active-tile list, for a
-    (possibly sharded) row range against the full column set.
-
-    The host enumerates the (row-major sorted) tiles that can contain
-    admissible pairs (bbox pruning + incremental window); the grid iterates
-    only those -- skipped tiles cost nothing, unlike a masked dense grid.
-    ``tile_i`` holds row-block indices local to ``rows_t`` (global offset
-    ``row_block_offset`` blocks), ``tile_j`` global col-block indices; both
-    may be padded by repeating their last entry (the min-reduction is
-    idempotent). Proposals default to IMAX via an aliased init buffer for
-    rows whose tiles were all pruned.
+    Returns (N_pad,) int32 proposals to fold into the labels with a
+    minimum.
     """
-    n_dim, r_pad = rows_t.shape
-    n_cols = cols_t.shape[1]
-    n_tiles = tile_i.shape[0]
-    if dirty is None:
-        dirty = jnp.ones((n_cols // col_block,), dtype=jnp.int32)
-    kernel = functools.partial(_label_min_sparse_kernel,
-                               row_block=row_block, col_block=col_block,
-                               n_dim=n_dim)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=5,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((n_dim, row_block),
-                         lambda k, nb, md, ti, tj, dy: (0, ti[k])),
-            pl.BlockSpec((n_dim, col_block),
-                         lambda k, nb, md, ti, tj, dy: (0, tj[k])),
-            pl.BlockSpec((1, col_block),
-                         lambda k, nb, md, ti, tj, dy: (0, tj[k])),
-            pl.BlockSpec((1, row_block),
-                         lambda k, nb, md, ti, tj, dy: (0, ti[k])),
-        ],
-        out_specs=pl.BlockSpec((1, row_block),
-                               lambda k, nb, md, ti, tj, dy: (0, ti[k])),
-    )
-    init = jnp.full((1, r_pad), _IMAX, dtype=jnp.int32)
-    window = jnp.stack([jnp.asarray(n_below, dtype=jnp.int32),
-                        jnp.asarray(row_block_offset, dtype=jnp.int32)])
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((1, r_pad), jnp.int32),
-        input_output_aliases={8: 0},  # init buffer -> output
-        interpret=INTERPRET_MODE(),
-    )(window,
-      jnp.asarray([max_dist2], dtype=jnp.float32),
-      jnp.asarray(tile_i, dtype=jnp.int32),
-      jnp.asarray(tile_j, dtype=jnp.int32),
-      jnp.asarray(dirty, dtype=jnp.int32),
-      rows_t, cols_t, labels, init)
-
-
-def label_min_sparse(coords_t_sorted, labels, n_below, max_dist2,
-                     tile_i, tile_j, dirty=None,
-                     row_block=DEFAULT_ROW_BLOCK,
-                     col_block=DEFAULT_COL_BLOCK):
-    """Single-device all-pairs sparse sweep; see label_min_sparse_cross."""
-    return label_min_sparse_cross(coords_t_sorted, coords_t_sorted, labels,
-                                  n_below, max_dist2, tile_i, tile_j,
-                                  jnp.int32(0), dirty=dirty,
-                                  row_block=row_block,
-                                  col_block=col_block)
-
-
-def _label_min_bidir_kernel(win_ref, max_d2_ref, ti_ref, tj_ref,
-                            dirty_tile_ref,
-                            xt_ref, yt_ref, lab_y_ref, lab_x_ref, init_ref,
-                            out_ref, acc_ref,
-                            *, row_block, col_block, n_dim):
-    """Bidirectional sweep body: each visited tile proposes column labels
-    to its rows (as _label_min_sparse_kernel) AND row labels to its
-    columns, so an upper-triangular tile list covers every unordered pair
-    with ONE distance evaluation -- half the VPU work of the symmetric
-    list. Column proposals accumulate in a CONSTANT-index-map output of
-    one sublane row per column block -- VMEM-resident for the whole grid
-    (execution is sequential on TPU), flushed to HBM exactly once, no
-    per-step write-backs (same rework as the pops/NN bidir kernels).
-
-    ``win_ref`` = [n_below, col_base]: the accumulator covers column
-    blocks [col_base, col_base + col_span) -- unions past the VMEM
-    budget split into column-range partitions, so VMEM never caps the
-    union size."""
-    del init_ref  # aliased into the row output in HBM (defines blocks
-    # the grid never writes)
-    k = pl.program_id(0)
-    n_below = win_ref[0]
-    cb0 = win_ref[1]
-    max_dist2 = max_d2_ref[0]
-    i = ti_ref[k]
-    j = tj_ref[k]
-
-    @pl.when(k == 0)
-    def _():
-        acc_ref[:, :] = jnp.full_like(acc_ref, _IMAX)
-
-    # row output VMEM is write-back only: init on first visit of each row
-    # block (tile list is sorted by row block)
-    @pl.when((k == 0) | (i != ti_ref[jnp.maximum(k - 1, 0)]))
-    def _():
-        out_ref[:, :] = jnp.full_like(out_ref, _IMAX)
-
-    # skip repeat-padded duplicates, and tiles where neither side's
-    # labels changed since the previous sweep (their proposals are
-    # already in the union; both directions must be clean to skip).
-    # The dirty gate arrives pre-gathered per TILE (callers compute
-    # dirty_col[tj] | dirty_row[ti] on device): per-block arrays here
-    # scaled SMEM with N (s32[n_pad/row_block] = 512KB at 16M frames
-    # blew v5e's 1MB scalar memory); per-tile flags scale only with the
-    # chunk length, like the pops/NN kernels' rmask operand.
-    @pl.when((dirty_tile_ref[k] != 0)
-             & ((k == 0)
-                | (i != ti_ref[jnp.maximum(k - 1, 0)])
-                | (j != tj_ref[jnp.maximum(k - 1, 0)])))
-    def _():
-        d2 = _dist2_tile(xt_ref, yt_ref, row_block, col_block, n_dim)
-        col_ids = j * col_block + jax.lax.broadcasted_iota(
-            jnp.int32, (row_block, col_block), 1)
-        row_ids = i * row_block + jax.lax.broadcasted_iota(
-            jnp.int32, (row_block, col_block), 0)
-        adj = (d2 < max_dist2) & (col_ids < n_below) & (row_ids < n_below)
-        cand = jnp.where(adj, lab_y_ref[0, :].reshape(1, col_block), _IMAX)
-        out_ref[0, :] = jnp.minimum(out_ref[0, :], jnp.min(cand, axis=1))
-        cand_r = jnp.where(adj, lab_x_ref[0, :].reshape(row_block, 1),
-                           _IMAX)
-        colmin = jnp.min(cand_r, axis=0, keepdims=True)
-        sl = pl.ds(j - cb0, 1)
-        acc_ref[sl, :] = jnp.minimum(acc_ref[sl, :], colmin)
-
-
-@functools.partial(jax.jit, static_argnames=("union_size", "col_span",
-                                             "row_block", "col_block"))
-def label_min_sparse_bidir(coords_t, labels, n_below, max_dist2,
-                           tile_i, tile_j, dirty_tile,
-                           union_size,
-                           row_block=DEFAULT_ROW_BLOCK,
-                           col_block=DEFAULT_COL_BLOCK,
-                           col_base=0, col_span=None):
-    """Upper-triangular sparse sweep with bidirectional label proposals.
-
-    ``tile_i/tile_j`` must list only tiles with ``(j+1)*col_block >
-    i*row_block`` (every unordered admissible pair appears in at least
-    the tile holding its (min, max) orientation -- see ScreeningEngine).
-    Returns (row_proposals (1, N_pad), col_proposals (1, span*cb));
-    both are elementwise label proposals to fold with the current labels
-    (the column side at offset col_base * col_block).
-
-    The column accumulator is a VMEM-resident constant-index-map output
-    covering column blocks [col_base, col_base + col_span) (default: the
-    whole union prefix); a tile list restricted to that tj range makes
-    partitioned sweeps exact -- min-label fixpoints are invariant to the
-    sweep schedule, so partitions may run in any order."""
+    _check_row_block(row_block)
+    sub, warps = _LABEL_TILING
+    sub = _sub_width(col_block, sub)
     n_dim, n_pad = coords_t.shape
-    n_tiles = tile_i.shape[0]
-    if col_span is None:
-        col_span = union_size // col_block
-    kernel = functools.partial(_label_min_bidir_kernel,
-                               row_block=row_block, col_block=col_block,
-                               n_dim=n_dim)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=5,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((n_dim, row_block),
-                         lambda k, nb, md, ti, tj, dt: (0, ti[k])),
-            pl.BlockSpec((n_dim, col_block),
-                         lambda k, nb, md, ti, tj, dt: (0, tj[k])),
-            pl.BlockSpec((1, col_block),
-                         lambda k, nb, md, ti, tj, dt: (0, tj[k])),
-            pl.BlockSpec((1, row_block),
-                         lambda k, nb, md, ti, tj, dt: (0, ti[k])),
-            pl.BlockSpec((1, row_block),
-                         lambda k, nb, md, ti, tj, dt: (0, ti[k])),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, row_block),
-                         lambda k, nb, md, ti, tj, dt: (0, ti[k])),
-            pl.BlockSpec((col_span, col_block),
-                         lambda k, nb, md, ti, tj, dt: (0, 0)),
-        ],
-    )
-    init = jnp.full((1, n_pad), _IMAX, dtype=jnp.int32)
-    window = jnp.stack([jnp.asarray(n_below, dtype=jnp.int32),
-                        jnp.asarray(col_base, dtype=jnp.int32)])
-    # scoped-vmem limit: column accumulator + result-tuple headroom
-    # (see _scoped_vmem_limit)
-    params = pltpu.CompilerParams(vmem_limit_bytes=_scoped_vmem_limit(
-        col_span * col_block * 4, n_pad * 4 + col_span * col_block * 4))
-    out, acc = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=[jax.ShapeDtypeStruct((1, n_pad), jnp.int32),
-                   jax.ShapeDtypeStruct((col_span, col_block), jnp.int32)],
-        # init buffer -> row output (covers unvisited row blocks)
-        input_output_aliases={9: 0},
-        compiler_params=params,
-        interpret=INTERPRET_MODE(),
-    )(window,
-      jnp.asarray([max_dist2], dtype=jnp.float32),
-      jnp.asarray(tile_i, dtype=jnp.int32),
-      jnp.asarray(tile_j, dtype=jnp.int32),
-      jnp.asarray(dirty_tile, dtype=jnp.int32),
-      coords_t, coords_t, labels, labels, init)
-    return out, acc.reshape(1, col_span * col_block)
+    nrb, ncb = n_pad // row_block, n_pad // col_block
+    ti, tj = _flat(tile_i), _flat(tile_j)
+    if dirty_col is None:
+        dirty_col = jnp.ones((ncb,), jnp.int32)
+    if dirty_row is None:
+        dirty_row = jnp.ones((nrb,), jnp.int32)
+    labels = jnp.asarray(labels, jnp.int32).reshape(-1)
+    interpret = INTERPRET_MODE()
+    kernel = functools.partial(
+        _label_kernel, row_block=row_block, col_block=col_block, sub=sub,
+        n_dim=n_dim, bidir=bidir, masked_atomics=not interpret)
+    args = [jnp.asarray(n_below, jnp.int32).reshape(1),
+            jnp.asarray(max_dist2, jnp.float32).reshape(1),
+            _csr(ti, nrb), tj, jnp.asarray(dirty_col, jnp.int32),
+            jnp.asarray(dirty_row, jnp.int32), coords_t, coords_t, labels]
+    out_shape = [jax.ShapeDtypeStruct((n_pad,), jnp.int32)]
+    aliases = {}
+    if bidir:
+        args.append(jnp.full((n_pad,), _IMAX, jnp.int32))
+        out_shape.append(jax.ShapeDtypeStruct((n_pad,), jnp.int32))
+        aliases = {len(args) - 1: 1}
+    outs = pl.pallas_call(
+        kernel, grid=(nrb,), out_shape=out_shape,
+        input_output_aliases=aliases, compiler_params=_params(warps),
+        backend="triton", interpret=interpret, name="label_sweep")(*args)
+    return jnp.minimum(outs[0], outs[1]) if bidir else outs[0]

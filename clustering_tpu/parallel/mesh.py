@@ -1,12 +1,14 @@
 """Device-mesh construction helpers.
 
 The framework scales over a 1-D mesh on the frame axis: the O(N^2) pair
-interactions are row-sharded (each chip owns a contiguous row range and
-streams all columns), the TPU-native replacement for the reference's
-multi-GPU row-range decomposition (src/density_clustering_cuda.cu:139-182)
-and MPI triangular balance (src/density_clustering_mpi.cpp:59-77).
-Collectives (psum-style count merges, all_gather label exchange) ride ICI;
-there is no rank-0 special-casing -- the program is SPMD throughout.
+interactions are split over the devices (row ranges on the plain XLA path,
+balanced active-tile shares on the Pallas path), the replacement for the
+reference's multi-GPU row-range decomposition
+(src/density_clustering_cuda.cu:139-182) and MPI triangular balance
+(src/density_clustering_mpi.cpp:59-77). Collectives (psum-style count
+merges, pmin / all_gather label exchange) go to NCCL between GPUs, which
+NVLink joins all to all, so the mesh follows the algorithm alone; there is
+no rank-0 special-casing -- the program is SPMD throughout.
 """
 
 import numpy as np
@@ -48,8 +50,7 @@ def replicated(x, mesh):
 def fetch(x):
     """Fully-replicated device array(s) -> host numpy, multi-process
     safe. Accepts a pytree: one ready-barrier for the whole tree, then
-    transfers queued back-to-back (round-trip-bound remote links pay one
-    sync, not one per array).
+    transfers queued back-to-back.
 
     Every process holds a complete copy of a replicated output, so one
     addressable shard is the whole array (no cross-host gather needed).

@@ -442,7 +442,7 @@ def make_header(mode: str, argv=None) -> str:
             "# by following command:\n#\n"
             f"# {cmd} \n"
             "#\n"
-            "# TPU-native rebuild of moldyn/clustering;"
+            "# JAX rebuild of moldyn/clustering;"
             " results are format-compatible with\n"
             "# clustering v1.3.2,"
             " see https://github.com/moldyn/clustering\n")

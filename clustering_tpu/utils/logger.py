@@ -53,3 +53,10 @@ class stage_timer:
         logger("    [%s: %.3fs]" % (self.label,
                                     time.perf_counter() - self._t0))
         return False
+
+
+def log_warm_failure(what, exc) -> None:
+    """Report a failed background compile warm under verbose mode. A warm
+    that fails only delays a compile, so it never raises; the message
+    (prefixed "warm failed") is what chip_smoke.py checks for."""
+    logger(f"    [{what}: warm failed: {type(exc).__name__}: {exc}]")

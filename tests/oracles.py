@@ -1,7 +1,7 @@
 """Naive brute-force reference implementations used as test oracles.
 
 These mirror the reference C++ semantics directly (O(N^2) python/numpy,
-small fixtures only) so the TPU ops can be checked against an independent
+small fixtures only) so the device ops can be checked against an independent
 implementation.
 """
 

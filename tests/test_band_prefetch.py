@@ -113,8 +113,8 @@ def test_prefetch_radius_not_in_list(blobs):
 def test_prefetch_survives_u16_truncation(blobs, monkeypatch):
     """When the band radius's counts overflow the speculative uint16
     cast (dense big-N runs), the exact int32 row must be refetched and
-    the prefetch still taken -- dropping it pushed the whole band phase
-    onto the NN wall (BIGN_r04: 134.7s of t_band at 16M frames)."""
+    the prefetch still taken -- dropping it would push the whole band
+    phase onto the NN stage's wall."""
     r = 0.4
     # force "overflow": every count > 4 truncates the u16 row
     monkeypatch.setattr(ops.engine.DensityEngine,
@@ -137,20 +137,20 @@ def test_prefetch_survives_u16_truncation(blobs, monkeypatch):
 
 
 def test_prefetch_with_tiered_speculation(blobs, monkeypatch):
-    """Force the tiered phase-2 constants low so the prefetch also
-    dispatches the speculative tiered plan, and the consuming call takes
-    the spec-hit path -- results still bit-equal to the plain run."""
+    """Force the tiered phase-2 constants low so the consuming call plans
+    the tiered phase 2 on top of the prefetched band phase -- results
+    still bit-equal to the plain run."""
     r = 0.4
     monkeypatch.setattr(ops.engine.DensityEngine, "TIERED_MIN_FRAMES", 64)
     monkeypatch.setattr(ops.engine.DensityEngine,
-                        "TIERED_MIN_SAVED_PAIRS", -1.0)
+                        "TIERED_MIN_SAVED_PAIRS", -1e18)
     eng_pf, eng_plain = _engines(blobs)
     fe = ops.free_energies(eng_pf.populations([r], nn_band_radius=r)[r])
     _join(eng_pf)
     assert eng_pf._band_prefetch is not None
-    assert eng_pf._band_prefetch["spec"] is not None
     nn_pf = eng_pf.nearest_neighbors(fe)
     assert eng_pf.last_stats["nn"].get("band_prefetched") is True
+    assert eng_pf.last_stats["nn"]["mode"] == "tiered"
     eng_plain.populations([r])
     nn_plain = eng_plain.nearest_neighbors(fe)
     for a, b in zip(nn_pf, nn_plain):
@@ -172,8 +172,8 @@ def test_band_sigma2_estimate(blobs):
     assert eng_pf.last_stats["nn"].get("band_prefetched") is True
     true = ops.neighbors.compute_sigma2(nn[1])
     # the estimate is an upper-bound-mean heuristic: tight at production
-    # N (band-miss frames are rare on spatially-sorted data; measured on
-    # TPU at 2^20) but loose on a 760-frame toy whose band covers only
+    # N (band-miss frames are rare on spatially-sorted data) but loose on
+    # a 760-frame toy whose band covers only
     # 64 Morton positions -- pin the sanity envelope, not the accuracy
     assert 0.3 * true < est < 3.0 * true
     eng_plain.populations([r])  # no nn_band_radius -> no stash

@@ -1,5 +1,5 @@
 """The compile ledger must record per-program compile events and fold
-them into a cost summary (cold-start accounting, VERDICT r3 item 6)."""
+them into a cost summary (cold-start accounting)."""
 
 import json
 

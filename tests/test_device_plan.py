@@ -1,6 +1,6 @@
 """Device-side planning (pruning.*_device) must emit exactly the host
-planners' tile sets, in the same row-major order, with the same chunk
-stacking -- big-N planning swaps the implementation, never the plan.
+planners' tile sets, in the same row-major order, with the same padded
+length -- big-N planning swaps the implementation, never the plan.
 Guards the exact-pruning invariant (reference box-grid semantics,
 src/density_clustering.cpp:41-105) under the device planners.
 """
@@ -19,81 +19,67 @@ def _rand_mask(nrb, ncb, p, seed):
     return rng.random((nrb, ncb)) < p
 
 
-@pytest.mark.parametrize("p,seed", [(0.0, 0), (1.0, 1), (0.07, 2),
-                                    (0.5, 3), (0.93, 4)])
-def test_bidir_closure_device_matches_host(p, seed):
-    ncb, span = 12, CB // RB
-    nrb = ncb * span
-    m = _rand_mask(nrb, ncb, p, seed)
-    want = pruning.bidir_closure(m, RB, CB)
-    got = np.asarray(pruning.bidir_closure_device(jnp.asarray(m), RB, CB))
-    np.testing.assert_array_equal(want, got)
-
-
-@pytest.mark.parametrize("hw_blocks", [1, 3, 7])
-def test_band_mask_device_matches_host(hw_blocks):
-    nrb, ncb = 64, 32
-    want = pruning.band_mask(nrb, ncb, RB, CB, hw_blocks * CB)
-    got = np.asarray(pruning.band_mask_device(nrb, ncb, RB, CB,
-                                              hw_blocks * CB))
-    np.testing.assert_array_equal(want, got)
-
-
-def test_upper_tri_device_matches_host_filter():
-    nrb, ncb = 32, 16
-    m = _rand_mask(nrb, ncb, 0.4, 9)
-    ri = np.arange(nrb)[:, None]
-    cj = np.arange(ncb)[None, :]
-    want = m & ((cj + 1) * CB > ri * RB)
-    got = np.asarray(pruning.upper_tri_device(jnp.asarray(m), RB, CB))
-    np.testing.assert_array_equal(want, got)
-
-
 @pytest.mark.parametrize("p,pad_mode", [(0.03, "repeat"), (0.03, "noop"),
                                         (0.6, "repeat"), (1.0, "noop")])
 def test_tile_list_device_matches_host(p, pad_mode):
     nrb, ncb = 48, 24
     m = _rand_mask(nrb, ncb, p, 11)
     m[0, 0] = True  # never empty
-    want = pruning.tile_list(m, pad_mode=pad_mode, max_entries=256)
+    want = pruning.tile_list(m, pad_mode=pad_mode)
     n = int(m.sum())
-    got = pruning.tile_list_device(jnp.asarray(m), n, pad_mode=pad_mode,
-                                   max_entries=256)
+    assert pruning.tile_count_device(jnp.asarray(m)) == n
+    got = pruning.tile_list_device(jnp.asarray(m), n, pad_mode=pad_mode)
+    assert want[0].shape == (pruning.list_bucket(n),)
     np.testing.assert_array_equal(want[0], np.asarray(got[0]))
     np.testing.assert_array_equal(want[1], np.asarray(got[1]))
 
 
 def test_tile_list_device_empty():
     m = np.zeros((16, 8), dtype=bool)
+    assert pruning.tile_count_device(jnp.asarray(m)) == 0
     assert pruning.tile_list_device(jnp.asarray(m), 0) is None
+    assert pruning.tile_list(m) is None
 
 
-def test_tile_list_device_window_matches_host_window():
-    """Windowed device lists == host iter_col_windows + chunking on the
-    same flat list (global tj, row-major within the window)."""
-    nrb, ncb, span = 48, 24, 7
-    m = _rand_mask(nrb, ncb, 0.3, 13)
-    ti_f, tj_f = np.nonzero(m)
-    cnt = np.asarray(pruning.window_counts_device(jnp.asarray(m), span))
-    assert int(cnt.sum()) == len(ti_f)
-    wins = list(pruning.iter_col_windows(tj_f, ncb, span))
-    w_idx = 0
-    for base in range(0, ncb, span):
-        width = min(span, ncb - base)
-        c = int(cnt[base // span])
-        if c == 0:
-            continue
-        wbase, wwidth, sel = wins[w_idx]
-        w_idx += 1
-        assert (wbase, wwidth) == (base, width)
-        assert c == int(sel.sum())
-        got = pruning.tile_list_device(jnp.asarray(m), c, base=base,
-                                       width=width, max_entries=64)
-        gi = np.asarray(got[0]).reshape(-1)[:c]
-        gj = np.asarray(got[1]).reshape(-1)[:c]
-        np.testing.assert_array_equal(gi, ti_f[sel])
-        np.testing.assert_array_equal(gj, tj_f[sel])
-    assert w_idx == len(wins)
+@pytest.mark.parametrize("n,want", [(0, 1024), (1, 1024), (1024, 1024),
+                                    (1025, 2048), (70000, 131072)])
+def test_list_bucket_pads_to_power_of_two(n, want):
+    """Tile lists pad to the next power of two (floor 1024): a handful of
+    compiled kernel shapes serve every list, at most 2x padding."""
+    assert pruning.list_bucket(n) == want
+
+
+def test_tile_list_pads_keep_rows_sorted():
+    """Repeat and no-op pads keep the flat list sorted by row block (the
+    kernels find each row block's run by binary search)."""
+    m = _rand_mask(40, 20, 0.2, 29)
+    for mode in ("repeat", "noop"):
+        ti, tj = pruning.tile_list(m, pad_mode=mode)
+        assert (np.diff(ti) >= 0).all()
+        n = int(m.sum())
+        assert (tj[n:] == (tj[n - 1] if mode == "repeat" else -1)).all()
+
+
+@pytest.mark.parametrize("row_lo,n_below,triangular",
+                         [(0, 380, False), (0, 380, True), (120, 380, True),
+                          (120, 512, False)])
+def test_screen_active_device_matches_host(row_lo, n_below, triangular):
+    """The screening device planner's mask algebra (prefix, new-frame
+    cross, upper triangle) equals the host planner's on the same plane."""
+    from clustering_tpu.ops.screening import _screen_active_device
+    nrb, ncb = 64, 32
+    below = _rand_mask(nrb, ncb, 0.4, 37)
+    ri = np.arange(nrb)[:, None]
+    cj = np.arange(ncb)[None, :]
+    want = below & (ri * RB < n_below) & (cj * CB < n_below)
+    if row_lo > 0:
+        want &= ((ri + 1) * RB > row_lo) | ((cj + 1) * CB > row_lo)
+    if triangular:
+        want &= (cj + 1) * CB > ri * RB
+    got = np.asarray(_screen_active_device(
+        jnp.asarray(below), jnp.int32(n_below), jnp.int32(row_lo), RB, CB,
+        triangular))
+    np.testing.assert_array_equal(want, got)
 
 
 def test_rmask_gather_device_matches_host():
@@ -123,7 +109,7 @@ def test_le_planes_device_matches_active_masks():
 
 # ---------------------------------------------------------------------------
 # engine integration: CLUSTERING_TPU_DEVICE_PLAN=1 must be bit-equal to
-# the host planner on every path (plain, tiered, windowed accumulators)
+# the host planner on every path (plain and tiered)
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -155,7 +141,6 @@ def test_engine_device_plan_bit_equal(blobs, monkeypatch):
     p_host, nn_host, st_host = _run_pipeline(blobs, monkeypatch, "0")
     assert st_dev["populations"].get("plan") == "device"
     assert "plan" not in st_host["populations"]
-    assert st_dev["nn"].get("plan") == "device"
     assert st_dev["nn"]["band_prefetched"] is True
     for r in p_dev:
         np.testing.assert_array_equal(p_dev[r], p_host[r])
@@ -173,31 +158,13 @@ def test_engine_device_plan_tiered_bit_equal(blobs, monkeypatch):
     from clustering_tpu import ops
     monkeypatch.setattr(ops.engine.DensityEngine, "TIERED_MIN_FRAMES", 64)
     # hugely negative threshold: the tiered plan is accepted even when
-    # it saves nothing at this toy size, exercising the spec-hit tiered
-    # RUN (device: _nn_tiered_run_dev off the prefetched spec closure)
+    # it saves nothing at this toy size
     monkeypatch.setattr(ops.engine.DensityEngine,
                         "TIERED_MIN_SAVED_PAIRS", -1e18)
     p_dev, nn_dev, st_dev = _run_pipeline(blobs, monkeypatch, "1")
     p_host, nn_host, st_host = _run_pipeline(blobs, monkeypatch, "0")
     assert st_dev["nn"]["mode"] == "tiered" == st_host["nn"]["mode"]
     assert st_dev["nn"]["phase2_tiles"] == st_host["nn"]["phase2_tiles"]
-    for a, b in zip(nn_dev, nn_host):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_engine_device_plan_windowed_bit_equal(blobs, monkeypatch):
-    """Tiny VMEM caps force >1 column window in both planners."""
-    from clustering_tpu import ops
-    cap = CB * 16 * 8  # NN span = 8 col blocks (< ncb)
-    pcap = CB * 4 * 2 * 8  # pops span at 2 radii = 8 col blocks
-    monkeypatch.setattr(ops.engine.DensityEngine,
-                        "NN_BIDIR_SCRATCH_CAP", cap)
-    monkeypatch.setattr(ops.engine.DensityEngine,
-                        "POPS_BIDIR_SCRATCH_CAP", pcap)
-    p_dev, nn_dev, st_dev = _run_pipeline(blobs, monkeypatch, "1")
-    p_host, nn_host, st_host = _run_pipeline(blobs, monkeypatch, "0")
-    for r in p_dev:
-        np.testing.assert_array_equal(p_dev[r], p_host[r])
     for a, b in zip(nn_dev, nn_host):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
@@ -224,19 +191,17 @@ def test_engine_device_plan_forced_tiers(blobs, monkeypatch):
 def test_tile_list_device_split_matches_host_splitter(pad_mode, n_dev):
     """The device round-robin deal (element k -> device k % n_dev) must
     hand every device exactly the host splitter's real-tile subsequence
-    in the same (n_dev, n_chunks, bucket) stacking; pads differ only in
-    VALUE (device split repeats the global last tile; pads are no-ops
-    for every consumer: noop tj=-1 skipped, repeat idempotent)."""
+    in the same (n_dev, L) shape; pads differ only in VALUE (device
+    split repeats the global last tile; pads are no-ops for every
+    consumer: noop tj=-1 skipped, repeat idempotent)."""
     nrb, ncb = 48, 24
     m = _rand_mask(nrb, ncb, 0.3, 17)
     m[0, 0] = True
     ti_f, tj_f = np.nonzero(m)
     want = pruning.split_tiles_balanced(ti_f, tj_f, n_dev,
-                                        pad_mode=pad_mode,
-                                        max_entries=256)
+                                        pad_mode=pad_mode)
     got = pruning.tile_list_device_split(jnp.asarray(m), len(ti_f), n_dev,
-                                         pad_mode=pad_mode,
-                                         max_entries=256)
+                                         pad_mode=pad_mode)
     assert got[0].shape == want[0].shape
     np.testing.assert_array_equal(want[2], got[2])
     gi, gj = np.asarray(got[0]), np.asarray(got[1])
@@ -252,28 +217,3 @@ def test_tile_list_device_split_matches_host_splitter(pad_mode, n_dev):
             # repeat pads carry a REAL active tile (idempotent recompute)
             for i, j in zip(gi[d].ravel()[c:], gj[d].ravel()[c:]):
                 assert m[i, j]
-
-
-def test_tile_list_device_split_window_stays_in_window():
-    """Windowed split lists: global tj inside [base*?, ...): every
-    real and repeat-pad entry must sit in the requested column window
-    (the windowed kernels' accumulator only spans it)."""
-    nrb, ncb, span = 48, 24, 7
-    m = _rand_mask(nrb, ncb, 0.25, 19)
-    m[:, 8] = True  # ensure the middle window is non-empty
-    cnt = np.asarray(pruning.window_counts_device(jnp.asarray(m), span))
-    base, width = span, min(span, ncb - span)
-    c = int(cnt[1])
-    got = pruning.tile_list_device_split(jnp.asarray(m), c, 5,
-                                         pad_mode="repeat", base=base,
-                                         width=width)
-    gj = np.asarray(got[1])
-    assert ((gj >= base) & (gj < base + width)).all()
-    # and the real entries reproduce the host window list round-robin
-    ti_f, tj_f = np.nonzero(m[:, base:base + width])
-    tj_f = tj_f + base
-    for d in range(5):
-        cd = int(got[2][d])
-        np.testing.assert_array_equal(np.asarray(got[0])[d].ravel()[:cd],
-                                      ti_f[d::5])
-        np.testing.assert_array_equal(gj[d].ravel()[:cd], tj_f[d::5])

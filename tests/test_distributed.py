@@ -154,7 +154,7 @@ def _artifact_lines(path):
 
 
 def test_cli_seven_modes_two_process_dcn(tmp_path):
-    """VERDICT r3 item 7: the full seven-mode CLI runs end-to-end under
+    """The full seven-mode CLI runs end-to-end under
     a two-process jax.distributed cluster (density's mesh spans both
     hosts; host modes chain off its artifacts) and every artifact file
     is identical to a single-process run.

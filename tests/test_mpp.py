@@ -256,8 +256,8 @@ def test_updated_tmat_matches_literal_oracle_fuzz():
 
 def test_mpp_production_scale_fast():
     """10^4 states x 10^6 frames must run in seconds, not hours
-    (VERDICT round-1 item 3; the reference pays the same complexity in
-    C++, mpp.cpp:181-232)."""
+    (the reference pays the same complexity in C++,
+    mpp.cpp:181-232)."""
     import time
     rng = np.random.default_rng(0)
     n = 1_000_000

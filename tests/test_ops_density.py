@@ -206,9 +206,11 @@ def test_device_bbox_matches_host():
                                       err_msg=f"t={t}")
     # per-row thresholds
     ub = rng.uniform(0.0, 30.0, size=host.shape[0]).astype(np.float32)
-    mask = pruning.active_mask_rows_device(jnp.asarray(dev),
-                                           jnp.asarray(ub))
-    np.testing.assert_array_equal(mask, dev <= ub[:, None])
+    words = pruning._pack_le_rows2(jnp.asarray(dev), jnp.asarray(dev),
+                                   jnp.asarray(np.stack([ub, ub])))
+    masks = pruning.unpack_planes(jax.device_get(words), dev.shape[1])
+    for mask in masks:
+        np.testing.assert_array_equal(mask, dev <= ub[:, None])
     # strict < (the screening engine's construction), including the
     # t=0 edge where a nextafter-based approach would hit XLA's
     # denormal flush

@@ -1,5 +1,6 @@
 """Pallas kernels in interpreter mode (CPU) must agree with the XLA path
-on tiny fixtures — the same kernels run compiled on TPU."""
+and the brute-force oracles on tiny fixtures -- the same Triton kernels run
+compiled on the GPU (chip_smoke.py checks them there at real widths)."""
 
 import numpy as np
 import pytest
@@ -166,7 +167,7 @@ def test_bidir_screening_matches_symmetric(blobs):
     s_s = ThresholdSeriesScreener(blobs, fe, thresholds,
                                   row_block=8, col_block=16,
                                   backend="pallas")
-    s_s.engine.BIDIR_UNION_VMEM = 0
+    s_s.engine.LABEL_BIDIR = False
     a = b = None
     modes_b, modes_s = [], []
     for k in range(len(thresholds)):
@@ -278,30 +279,25 @@ def test_engine_nn_no_neighbor_sentinels():
 
 
 def test_nn_finish_mode_gate(monkeypatch):
-    """Finish-mode auto-select: fused device fetch at small n, ids-only
-    host recompute at >=512k when the native pass loads and always
-    beyond 4M; env overrides win unconditionally."""
+    """Finish mode: the fused device finish by default at every n (the
+    card recomputes distances with the sweep's own arithmetic); the
+    ids-only host recompute only when CLUSTERING_TPU_NN_FINISH=host."""
     from clustering_tpu.ops.engine import _nn_finish_mode
-    from clustering_tpu.utils import textio_native
     monkeypatch.delenv("CLUSTERING_TPU_NN_FINISH", raising=False)
-    assert _nn_finish_mode(1 << 16) == "device"
-    assert _nn_finish_mode((1 << 22) + 1) == "host"
-    native = textio_native.available()
-    assert _nn_finish_mode(1 << 19) == ("host" if native else "device")
+    assert _nn_finish_mode() == "device"
     monkeypatch.setenv("CLUSTERING_TPU_NN_FINISH", "device")
-    assert _nn_finish_mode(1 << 23) == "device"
+    assert _nn_finish_mode() == "device"
     monkeypatch.setenv("CLUSTERING_TPU_NN_FINISH", "host")
-    assert _nn_finish_mode(16) == "host"
+    assert _nn_finish_mode() == "host"
 
 
 def test_engine_nn_finish_host_matches_device(monkeypatch):
     """The host finish (ids-only download + distance recompute — native
     single pass when the library loads, numpy fallback otherwise) must
     agree with the fused device finish: ids/partitions exactly;
-    distances to fma-contraction ulps (XLA:CPU contracts the device
-    finish's mul+add — the same documented nuance as docs/PARITY.md's
-    TPU-vs-CPU nn-distance note; on real v5e the two paths are
-    bit-identical, pinned by the paired A/B in ops/engine.py)."""
+    distances to fma-contraction ulps (XLA contracts the device
+    finish's mul+add to fma while the host recompute rounds twice --
+    the documented nn-distance note in docs/PARITY.md)."""
     coords = _bigger_blobs(n=500, seed=11)
     eng = ops.engine.DensityEngine(coords, row_block=8, col_block=16,
                                    backend="pallas")
@@ -381,31 +377,6 @@ def test_engine_nn_finish_streamed_matches_plain(monkeypatch):
     for i in range(4):
         np.testing.assert_array_equal(np.asarray(want[i]),
                                       np.asarray(got[i]))
-
-
-def test_engine_nn_speculative_tiered(monkeypatch):
-    """The auto-tiered speculative plan on one device (the production
-    path at >=2^19 frames, thresholds lowered to fixture size): the
-    second call speculates on the first call's winning order and must
-    record a spec hit; both calls exactly match the default path."""
-    eng_cls = ops.engine.DensityEngine
-    coords = _bigger_blobs(n=600, seed=3)
-    eng0 = eng_cls(coords, row_block=8, col_block=16, backend="pallas")
-    fe = ops.free_energies(eng0.populations([0.4])[0.4])
-    want = eng0.nearest_neighbors(fe)
-    monkeypatch.setattr(eng_cls, "TIERED_MIN_FRAMES", 64)
-    monkeypatch.setattr(eng_cls, "TIERED_MIN_SAVED_PAIRS", 0)
-    eng = eng_cls(coords, row_block=8, col_block=16, backend="pallas")
-    got1 = eng.nearest_neighbors(fe)
-    got2 = eng.nearest_neighbors(fe)
-    assert eng.last_stats["nn"].get("spec_hit"), eng.last_stats["nn"]
-    for got in (got1, got2):
-        np.testing.assert_array_equal(np.asarray(want[0]),
-                                      np.asarray(got[0]))
-        np.testing.assert_array_equal(np.asarray(want[2]),
-                                      np.asarray(got[2]))
-        np.testing.assert_allclose(want[1], got[1], rtol=1e-6)
-        np.testing.assert_allclose(want[3], got[3], rtol=1e-6)
 
 
 def test_native_nn_finish_matches_numpy_fallback():
@@ -543,22 +514,11 @@ def test_engine_nn_auto_tier_decision(monkeypatch):
     got = eng.nearest_neighbors(fe, band_blocks=1, tier_qs="auto")
     assert eng.last_stats["nn"]["mode"] == "block-bound"
     np.testing.assert_array_equal(want[0], got[0])
-    # force the auto path to plan (any positive saving accepted); under
-    # bidirectional sweeps the plan uses the symmetric tiered re-sort
+    # force the auto path to plan (any positive saving accepted)
     monkeypatch.setattr(type(eng), "TIERED_MIN_FRAMES", 1)
     monkeypatch.setattr(type(eng), "TIERED_MIN_SAVED_PAIRS", -1.0)
     got = eng.nearest_neighbors(fe, band_blocks=1, tier_qs="auto")
     assert eng.last_stats["nn"]["mode"] == "tiered"
-    assert eng.last_stats["nn"]["bidir"]
-    np.testing.assert_array_equal(want[0], got[0])
-    np.testing.assert_array_equal(want[2], got[2])
-    np.testing.assert_allclose(want[1], got[1], rtol=1e-6)
-    np.testing.assert_allclose(want[3], got[3], rtol=1e-6)
-    # the unidirectional tiered plan still serves when bidir is gated off
-    monkeypatch.setattr(type(eng), "NN_BIDIR_SCRATCH_CAP", 0)
-    got = eng.nearest_neighbors(fe, band_blocks=1, tier_qs="auto")
-    assert eng.last_stats["nn"]["mode"] == "tiered"
-    assert not eng.last_stats["nn"]["bidir"]
     np.testing.assert_array_equal(want[0], got[0])
     np.testing.assert_array_equal(want[2], got[2])
     np.testing.assert_allclose(want[1], got[1], rtol=1e-6)
@@ -569,74 +529,6 @@ def test_engine_nn_auto_tier_decision(monkeypatch):
     got = eng.nearest_neighbors(fe, band_blocks=1, tier_qs="auto")
     assert eng.last_stats["nn"]["mode"] == "block-bound"
     np.testing.assert_array_equal(want[0], got[0])
-
-
-def test_engine_pops_bidir_col_partitioned(monkeypatch):
-    """A VMEM budget below the full-range column accumulator must split
-    the bidirectional pops sweep into column-range partitions with
-    identical counts."""
-    coords = _bigger_blobs(n=700, seed=11)
-    eng = ops.engine.DensityEngine(coords, row_block=8, col_block=16,
-                                   backend="pallas")
-    radii = [0.3, 0.5, 0.8]
-    want = eng.populations(radii)
-    eng2 = ops.engine.DensityEngine(coords, row_block=8, col_block=16,
-                                    backend="pallas")
-    # budget -> span of ~2 col blocks per partition (3 radii)
-    monkeypatch.setattr(type(eng2), "POPS_BIDIR_SCRATCH_CAP", 16 * 4 * 3 * 2)
-    got = eng2.populations(radii)
-    for r in radii:
-        np.testing.assert_array_equal(want[r], got[r])
-
-
-def test_engine_nn_bidir_col_partitioned(monkeypatch):
-    """A VMEM budget below the full-range column accumulator must split
-    the bidirectional sweep into column-range partitions with identical
-    results (the round-2 engine fell back to symmetric sweeps instead --
-    the large-N cap this removes)."""
-    coords = _bigger_blobs(n=700, seed=17)
-    eng = ops.engine.DensityEngine(coords, row_block=8, col_block=16,
-                                   backend="pallas")
-    pops = eng.populations([0.4])
-    fe = ops.free_energies(pops[0.4])
-    want = ops.nearest_neighbors(coords, fe, backend="xla",
-                                 row_block=8, col_block=16)
-    # budget -> span of 8 col blocks (<< ncb): several partitions
-    monkeypatch.setattr(type(eng), "NN_BIDIR_SCRATCH_CAP", 16 * 16 * 8)
-    got = eng.nearest_neighbors(fe, band_blocks=1)
-    assert eng.last_stats["nn"]["bidir"]
-    np.testing.assert_array_equal(want[0], got[0])
-    np.testing.assert_array_equal(want[2], got[2])
-    np.testing.assert_allclose(want[1], got[1], rtol=1e-6)
-    np.testing.assert_allclose(want[3], got[3], rtol=1e-6)
-
-
-def test_screening_bidir_union_partitioned(blobs, monkeypatch):
-    """A VMEM budget below the union's column accumulator must split the
-    bidirectional screening sweeps into column-range partitions with
-    identical labels (the round-2 engine capped the union size instead)."""
-    from clustering_tpu.models.density import screening_step
-    pops = ops.populations(blobs, [0.4], backend="xla",
-                           row_block=8, col_block=16)[0.4]
-    fe = ops.free_energies(pops)
-    order = density_model.sorted_fe_order(fe)
-    cs = blobs[order]
-    eng_full = ops.screening.ScreeningEngine(cs, row_block=8, col_block=16,
-                                             backend="pallas")
-    eng_part = ops.screening.ScreeningEngine(cs, row_block=8, col_block=16,
-                                             backend="pallas")
-    # budget -> 2 column blocks per partition
-    monkeypatch.setattr(type(eng_part), "BIDIR_UNION_VMEM", 16 * 4 * 2)
-    prev_f = prev_p = None
-    for t in (0.5, 1.5, 2.5):
-        prev_f = screening_step(fe, np.full(len(blobs), 0.02, np.float32),
-                                t, blobs, prev_f, order=order,
-                                coords_sorted=cs, engine=eng_full)
-        prev_p = screening_step(fe, np.full(len(blobs), 0.02, np.float32),
-                                t, blobs, prev_p, order=order,
-                                coords_sorted=cs, engine=eng_part)
-        assert eng_part.last_stats["mode"] == "bidir"
-        np.testing.assert_array_equal(prev_f, prev_p)
 
 
 def test_series_screener_hd_seeding_matches_unseeded():
@@ -723,28 +615,6 @@ def test_series_step_submit_matches_step():
                 np.testing.assert_array_equal(want[k], f.result())
 
 
-def test_host_driven_fixpoint_matches(monkeypatch):
-    """Tile lists longer than the dispatch cap run the host-driven sweep
-    loop (bounded programs); results must match the fused fixpoint."""
-    import clustering_tpu.ops.pallas_kernels as pk
-    from clustering_tpu.models import density as dm
-    rng = np.random.default_rng(5)
-    coords = np.concatenate([
-        rng.normal(0, 0.2, size=(300, 3)),
-        rng.normal((2, 1, 0), 0.2, size=(200, 3))]).astype(np.float32)
-    pops = ops.populations(coords, [0.5], backend="xla",
-                           row_block=8, col_block=16)[0.5]
-    fe = ops.free_energies(pops)
-    order = dm.sorted_fe_order(fe)
-    labels0 = np.arange(len(coords), dtype=np.int32)
-    want = ops.screening_labels(coords[order], labels0, 400, 0.08,
-                                backend="pallas", row_block=8, col_block=16)
-    monkeypatch.setattr(pk, "DISPATCH_CHUNK_GROUP", 1)
-    got = ops.screening_labels(coords[order], labels0, 400, 0.08,
-                               backend="pallas", row_block=8, col_block=16)
-    np.testing.assert_array_equal(want, got)
-
-
 def test_high_dimension_parity():
     """D=32 collective variables (well past the typical 2-16) through
     the full engine pipeline vs the XLA oracle: the per-dimension
@@ -771,60 +641,6 @@ def test_high_dimension_parity():
     np.testing.assert_array_equal(want_nn[2], got_nn[2])
     np.testing.assert_allclose(want_nn[1], got_nn[1], rtol=1e-6)
     np.testing.assert_allclose(want_nn[3], got_nn[3], rtol=1e-6)
-
-
-def test_bidir_pops_matches_symmetric():
-    """Bidirectional upper-triangular counts must equal the symmetric
-    sweep and the XLA oracle, including duplicated frames (self-pair and
-    d2=0 semantics) and the multi-radius rmask path."""
-    coords = _bigger_blobs(n=900, seed=23)
-    coords[50:70] = coords[0]  # exact duplicates
-    radii = [0.2, 0.4, 0.8]
-    want = ops.populations(coords, radii, backend="xla",
-                           row_block=8, col_block=16)
-    e_b = ops.engine.DensityEngine(coords, row_block=8, col_block=16,
-                                   backend="pallas")
-    e_s = ops.engine.DensityEngine(coords, row_block=8, col_block=16,
-                                   backend="pallas")
-    e_s.POPS_BIDIR_SCRATCH_CAP = 0
-    got_b = e_b.populations(radii)
-    got_s = e_s.populations(radii)
-    assert e_b.last_stats["populations"]["mode"] == "bidir"
-    assert e_s.last_stats["populations"]["mode"] == "symmetric"
-    assert (e_b.last_stats["populations"]["computed_tiles"]
-            < e_s.last_stats["populations"]["computed_tiles"])
-    for r in radii:
-        np.testing.assert_array_equal(want[r], got_b[r], err_msg=f"r={r}")
-        np.testing.assert_array_equal(want[r], got_s[r], err_msg=f"r={r}")
-
-
-def test_grouped_dispatch_pops_and_nn_match(monkeypatch):
-    """Chunk grouping across dispatches (watchdog cap) must not change
-    populations or NN results."""
-    import clustering_tpu.ops.pallas_kernels as pk
-    from clustering_tpu.ops import pruning
-    coords = _bigger_blobs(n=700, seed=31)
-    eng = ops.engine.DensityEngine(coords, row_block=8, col_block=16,
-                                   backend="pallas")
-    pops_ref = eng.populations([0.3, 0.5])
-    fe = ops.free_energies(pops_ref[0.3])
-    nn_ref = eng.nearest_neighbors(fe)
-    monkeypatch.setattr(pk, "DISPATCH_CHUNK_GROUP", 1)
-    orig_tile_list = pruning.tile_list
-    monkeypatch.setattr(
-        pruning, "tile_list",
-        lambda active, pad_mode="repeat", max_entries=None:
-            orig_tile_list(active, pad_mode=pad_mode, max_entries=128))
-    # fresh engine: tile lists now split into many tiny chunks, one
-    # dispatch each
-    eng2 = ops.engine.DensityEngine(coords, row_block=8, col_block=16,
-                                    backend="pallas")
-    pops_g = eng2.populations([0.3, 0.5])
-    for r in (0.3, 0.5):
-        np.testing.assert_array_equal(pops_ref[r], pops_g[r])
-    nn_g = eng2.nearest_neighbors(fe)
-    for a, b in zip(nn_ref, nn_g):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_series_label_prefetch_gate_bit_equal(monkeypatch):
@@ -864,3 +680,223 @@ def test_series_label_prefetch_gate_bit_equal(monkeypatch):
     on, off = run("1"), run("0")
     for a, b in zip(on, off):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# kernel-level checks: each Triton sweep against a brute-force oracle over
+# exactly the pairs its tile list covers
+# ---------------------------------------------------------------------------
+
+_RB, _CB = 8, 32
+_IMAX = np.iinfo(np.int32).max
+
+
+def _kernel_fixture(n=200, n_pad=256, d=3, seed=41, dup=False):
+    rng = np.random.default_rng(seed)
+    x = np.full((n_pad, d), 3e38, dtype=np.float32)
+    x[:n] = np.concatenate([rng.normal(0.0, 0.3, size=(n // 2, d)),
+                            rng.normal(1.0, 0.3, size=(n - n // 2, d))])
+    if dup:
+        x[10:14] = x[3]  # exact duplicates: d2 == 0 pairs
+    import oracles
+    with np.errstate(over="ignore", invalid="ignore"):
+        d2 = oracles.sq_dist_matrix(x)
+    return x, d2
+
+
+def _tiles(case, nrb, ncb, upper=False):
+    """(ti, tj, covered) for a named tile-list shape; ``covered`` is the
+    tile mask the list holds (pads excluded)."""
+    ri, cj = np.meshgrid(np.arange(nrb), np.arange(ncb), indexing="ij")
+    mask = np.ones((nrb, ncb), bool)
+    if case == "single_tile":
+        mask = (ri == 3) & (cj == 1)
+    elif case == "empty_rows":
+        mask = (ri % 3) != 1  # every third row block has no tile
+    elif case == "sparse":
+        mask = ((ri * 7 + cj * 3) % 4) != 0
+    if upper:
+        mask &= (cj + 1) * _CB > ri * _RB
+    ti, tj = np.nonzero(mask)
+    ti, tj = ti.astype(np.int32), tj.astype(np.int32)
+    return ti, tj, mask
+
+
+def _pair_mask(mask):
+    return np.repeat(np.repeat(mask, _RB, axis=0), _CB, axis=1)
+
+
+@pytest.mark.parametrize("case", ["full", "sparse", "single_tile",
+                                  "empty_rows", "ragged", "noop_pads",
+                                  "duplicates"])
+def test_pops_sweep_kernel(case):
+    from clustering_tpu.ops import pallas_kernels as pk
+    x, d2 = _kernel_fixture(dup=case == "duplicates")
+    n_pad = x.shape[0]
+    n_valid = 137 if case == "ragged" else 200
+    ti, tj, mask = _tiles("full" if case in ("ragged", "noop_pads",
+                                             "duplicates") else case,
+                          n_pad // _RB, n_pad // _CB)
+    if case == "noop_pads":
+        ti = np.concatenate([ti, np.full(9, ti[-1], np.int32)])
+        tj = np.concatenate([tj, np.full(9, -1, np.int32)])
+    radii2 = np.asarray([0.01, 0.09, 0.36], np.float32)
+    # rmask: radius 0 disabled on odd tiles (their counts must skip it)
+    rm = np.where(tj >= 0, 7, 0).astype(np.int32)
+    rm[1::2] &= ~1
+    got = np.asarray(pk.pops_sweep(x.T, x.T, radii2, n_valid, ti, tj, rm,
+                                   row_block=_RB, col_block=_CB))
+    cover = _pair_mask(mask) & (np.arange(n_pad)[None, :] < n_valid)
+    tile_has_r0 = np.zeros(mask.shape, bool)
+    real = tj >= 0
+    tile_has_r0[ti[real], tj[real]] = (rm[real] & 1) != 0
+    for r, t in enumerate(radii2):
+        cov = cover & (_pair_mask(tile_has_r0) if r == 0 else True)
+        want = ((d2 <= t) & cov).sum(axis=1)
+        np.testing.assert_array_equal(got[r], want, err_msg=f"r={r}")
+
+
+def _nn_oracle(d2, fe, oid, cover, n_valid):
+    n_pad = d2.shape[0]
+    valid = cover & (np.arange(n_pad)[None, :] < n_valid) & (d2 > 0)
+    out_d = np.full((2, n_pad), np.inf, np.float32)
+    out_j = np.full((2, n_pad), _IMAX, np.int64)
+    for q, extra in enumerate((True, fe[None, :] < fe[:, None])):
+        dm = np.where(valid & extra, d2, np.inf)
+        best = dm.min(axis=1)
+        out_d[q] = best
+        cand = np.where(dm == best[:, None], oid[None, :], _IMAX)
+        out_j[q] = np.where(np.isfinite(best), cand.min(axis=1), _IMAX)
+    return out_d, out_j
+
+
+@pytest.mark.parametrize("case", ["full", "sparse", "single_tile",
+                                  "empty_rows", "ragged", "repeat_pads",
+                                  "duplicates"])
+def test_nn_sweep_kernel(case):
+    from clustering_tpu.ops import pallas_kernels as pk
+    x, d2 = _kernel_fixture(dup=case == "duplicates", seed=43)
+    n_pad = x.shape[0]
+    n_valid = 150 if case == "ragged" else 200
+    rng = np.random.default_rng(3)
+    fe = np.full(n_pad, np.inf, np.float32)
+    fe[:200] = rng.random(200).astype(np.float32)
+    # a permutation as "original ids": ties must break on these
+    oid = np.full(n_pad, _IMAX, np.int32)
+    oid[:200] = rng.permutation(200).astype(np.int32)
+    ti, tj, mask = _tiles(case if case in ("sparse", "single_tile",
+                                           "empty_rows") else "full",
+                          n_pad // _RB, n_pad // _CB)
+    if case == "repeat_pads":
+        ti = np.concatenate([ti, np.full(9, ti[-1], np.int32)])
+        tj = np.concatenate([tj, np.full(9, tj[-1], np.int32)])
+    got_d, got_j = pk.nn_sweep(x.T, fe[None], x.T, fe[None], oid[None],
+                               n_valid, ti, tj, row_block=_RB,
+                               col_block=_CB)
+    want_d, want_j = _nn_oracle(d2, fe, oid, _pair_mask(mask), n_valid)
+    np.testing.assert_array_equal(np.asarray(got_j)[:, :200],
+                                  want_j[:, :200])
+    # the interpreter contracts to fma like the card: 1-ulp class
+    np.testing.assert_allclose(np.asarray(got_d)[:, :200],
+                               want_d[:, :200], rtol=2e-7)
+
+
+@pytest.mark.parametrize("bidir", [False, True])
+@pytest.mark.parametrize("case", ["full", "prefix", "repeat_pads",
+                                  "empty_rows", "dirty_gate"])
+def test_label_sweep_kernel(case, bidir):
+    from clustering_tpu.ops import pallas_kernels as pk
+    x, d2 = _kernel_fixture(seed=47)
+    n_pad = x.shape[0]
+    nrb, ncb = n_pad // _RB, n_pad // _CB
+    n_below = 120 if case == "prefix" else 200
+    md2 = np.float32(0.05)
+    rng = np.random.default_rng(5)
+    labels = np.arange(n_pad, dtype=np.int32)
+    labels[:200] = np.minimum(labels[:200],
+                              rng.integers(0, 200, 200).astype(np.int32))
+    ti, tj, mask = _tiles("empty_rows" if case == "empty_rows" else "full",
+                          nrb, ncb, upper=bidir)
+    if case == "repeat_pads":
+        ti = np.concatenate([ti, np.full(9, ti[-1], np.int32)])
+        tj = np.concatenate([tj, np.full(9, tj[-1], np.int32)])
+    dirty_col = np.ones(ncb, np.int32)
+    dirty_row = np.ones(nrb, np.int32)
+    if case == "dirty_gate":
+        dirty_col[[1, 4]] = 0
+        dirty_row[::2] = 0
+    got = np.asarray(pk.label_sweep(x.T, labels, n_below, md2, ti, tj,
+                                    dirty_col, dirty_row, bidir=bidir,
+                                    row_block=_RB, col_block=_CB))
+    swept = mask.copy()
+    ri = np.arange(nrb)[:, None]
+    cj = np.arange(ncb)[None, :]
+    clean = dirty_col[cj] == 0
+    if bidir:
+        clean = clean & (dirty_row[ri] == 0)
+    swept &= ~clean
+    cover = _pair_mask(swept)
+    if bidir:
+        cover = cover | cover.T
+    ids = np.arange(n_pad)
+    adj = ((d2 < md2) & cover & (ids[None, :] < n_below)
+           & (ids[:, None] < n_below))
+    want = np.where(adj, labels[None, :], _IMAX).min(axis=1)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("platform,want", [("cpu", "xla"),
+                                           ("gpu", "pallas"),
+                                           ("rocm", None)])
+def test_auto_backend_per_platform(platform, want, monkeypatch):
+    """"auto" is decided in one place: the CPU runs the plain XLA path,
+    the GPU the measured winner, any other platform raises."""
+    from clustering_tpu.ops import pallas_kernels as pk
+    monkeypatch.setattr(pk.jax, "default_backend", lambda: platform)
+    if want is None:
+        with pytest.raises(RuntimeError, match="no kernel backend"):
+            pk.resolve_backend("auto")
+    else:
+        assert pk.resolve_backend("auto") == want
+    assert pk.resolve_backend("xla") == "xla"
+    assert pk.resolve_backend("pallas") == "pallas"
+    with pytest.raises(ValueError):
+        pk.resolve_backend("mosaic")
+
+
+@pytest.mark.parametrize("kw,msg", [(dict(row_block=12), "power of two"),
+                                    (dict(col_block=24), "multiple")])
+def test_sweep_rejects_bad_blocks(kw, msg):
+    """Triton blocks are powers of two: a row block that is not, or a
+    column block that no power-of-two sub-tile divides, is refused
+    before any kernel is traced."""
+    from clustering_tpu.ops import pallas_kernels as pk
+    x = np.zeros((2, 96), np.float32)
+    z = np.zeros(1, np.int32)
+    with pytest.raises(ValueError, match=msg):
+        pk.pops_sweep(x, x, np.ones(1, np.float32), 96, z, z,
+                      **{"row_block": 8, "col_block": 32, **kw})
+
+
+def test_csr_offsets_of_sorted_lists():
+    """Each row block's run in a sorted list, including empty runs and
+    pad entries past the last row block."""
+    from clustering_tpu.ops import pallas_kernels as pk
+    ti = np.asarray([0, 0, 2, 2, 2, 5, 9, 9], np.int32)
+    got = np.asarray(pk._csr(ti, 6))
+    np.testing.assert_array_equal(got, [0, 2, 2, 5, 5, 5, 6])
+
+
+@pytest.mark.gpu
+def test_sweeps_compiled_on_gpu(gpu):
+    """The compiled Triton sweeps agree with the interpreter's results
+    (on the card; chip_smoke.py runs the same comparison at real
+    widths)."""
+    from clustering_tpu.ops import pallas_kernels as pk
+    x, d2 = _kernel_fixture()
+    ti, tj, _ = _tiles("full", x.shape[0] // _RB, x.shape[0] // _CB)
+    radii2 = np.asarray([0.09], np.float32)
+    got = np.asarray(pk.pops_sweep(x.T, x.T, radii2, 200, ti, tj,
+                                   row_block=_RB, col_block=_CB))
+    want = ((d2 <= radii2[0]) & (np.arange(x.shape[0]) < 200)).sum(axis=1)
+    np.testing.assert_array_equal(got[0], want)

@@ -1,9 +1,7 @@
 """Device-planned screening (CLUSTERING_TPU_DEVICE_PLAN=1) must be
-bit-equal to the host planner on every driver path: the single
-device-program fixpoint, the host-driven group fixpoint (tile lists too
-long for one program), and multi-window column partitions. Big-N
-planning swaps the implementation, never the plan (the same invariant
-tests/test_device_plan.py pins for the density engine).
+bit-equal to the host planner, for the bidirectional and the symmetric
+sweep. Big-N planning swaps the implementation, never the plan (the same
+invariant tests/test_device_plan.py pins for the density engine).
 
 Reference: the screening driver runs at any N with ~zero launch cost
 (src/density_clustering_cuda.cu:396-594); here the device planner keeps
@@ -65,41 +63,24 @@ def test_series_device_plan_bit_equal(blobs, fe, monkeypatch):
         np.testing.assert_array_equal(a, b)
 
 
-def test_series_device_plan_host_groups_driver(blobs, fe, monkeypatch):
-    """Tile lists longer than one dispatch group route both planners
-    through the host-driven bidirectional group fixpoint."""
-    from clustering_tpu.ops import pallas_kernels as pk
-    monkeypatch.setattr(pk, "DISPATCH_CHUNK_GROUP", 1)
-    # several column windows guarantee >1 chunk total
-    monkeypatch.setattr(ops.screening.ScreeningEngine,
-                        "BIDIR_UNION_VMEM", CB * 4 * 8)
+@pytest.mark.parametrize("bidir", [False, True])
+def test_series_device_plan_matches_xla(blobs, fe, monkeypatch, bidir):
+    """Both planners, with the bidirectional or the symmetric label
+    sweep, land on the XLA oracle's clustering at every threshold."""
+    monkeypatch.setattr(ops.screening.ScreeningEngine, "LABEL_BIDIR",
+                        bidir)
     got, s_dev = _run_series(blobs, fe, monkeypatch, "1")
-    want, s_host = _run_series(blobs, fe, monkeypatch, "0")
-    assert any(st.get("driver") == "host-groups"
+    want, _ = _run_series(blobs, fe, monkeypatch, "0")
+    assert all(st["mode"] == ("bidir" if bidir else "symmetric")
                for st in s_dev.per_step_stats)
-    assert any(st.get("driver") == "host-groups"
-               for st in s_host.per_step_stats)
-    for a, b in zip(got, want):
-        np.testing.assert_array_equal(a, b)
-    # and against the XLA oracle on the final threshold
     xla = ops.screening.ThresholdSeriesScreener(
         blobs, fe, [np.float32(t) for t in THRESHOLDS],
         row_block=RB, col_block=CB, backend="xla")
     prev = None
     for k in range(len(THRESHOLDS)):
         prev = xla.step(prev, k, MD2)
-    np.testing.assert_array_equal(got[-1], prev)
-
-
-def test_series_device_plan_multi_window(blobs, fe, monkeypatch):
-    """A tiny VMEM budget forces >1 column window in both planners."""
-    monkeypatch.setattr(ops.screening.ScreeningEngine,
-                        "BIDIR_UNION_VMEM", CB * 4 * 8)  # span = 8 blocks
-    got, s_dev = _run_series(blobs, fe, monkeypatch, "1")
-    want, s_host = _run_series(blobs, fe, monkeypatch, "0")
-    assert all(st.get("plan") == "device" for st in s_dev.per_step_stats)
-    for a, b in zip(got, want):
-        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(got[k], prev)
+        np.testing.assert_array_equal(want[k], prev)
 
 
 def test_series_device_plan_hd_seeds(blobs, fe, monkeypatch):
@@ -132,77 +113,36 @@ def test_engine_run_device_plan_bit_equal(blobs, fe, monkeypatch):
 
 def test_precompile_device_plan(blobs, fe, monkeypatch):
     """precompile under the device planner must warm without error,
-    share its window plans with the real steps (WIN_CACHE), and leave
-    the results bit-equal."""
+    share its tile lists with the real steps (the engine's tile cache),
+    and leave the results bit-equal."""
     monkeypatch.setenv("CLUSTERING_TPU_DEVICE_PLAN", "1")
     series = ops.screening.ThresholdSeriesScreener(
         blobs, fe, [np.float32(t) for t in THRESHOLDS],
         row_block=RB, col_block=CB, backend="pallas")
     series.precompile(MD2)
-    assert series.engine._win_cache  # plans landed in the shared cache
+    assert series.engine._tile_cache  # plans landed in the shared cache
     prev = None
     for k in range(len(THRESHOLDS)):
         prev = series.step(prev, k, MD2)
-    want, _ = _run_series(blobs, fe, monkeypatch, "0")
-    np.testing.assert_array_equal(prev, want[-1])
-
-
-def test_precompile_device_plan_host_groups(blobs, fe, monkeypatch):
-    """The all-clean no-op warm of the host-groups programs must not
-    perturb results."""
-    from clustering_tpu.ops import pallas_kernels as pk
-    monkeypatch.setattr(pk, "DISPATCH_CHUNK_GROUP", 1)
-    monkeypatch.setattr(ops.screening.ScreeningEngine,
-                        "BIDIR_UNION_VMEM", CB * 4 * 8)
-    monkeypatch.setenv("CLUSTERING_TPU_DEVICE_PLAN", "1")
-    series = ops.screening.ThresholdSeriesScreener(
-        blobs, fe, [np.float32(t) for t in THRESHOLDS],
-        row_block=RB, col_block=CB, backend="pallas")
-    series.precompile(MD2)
-    prev = None
-    for k in range(len(THRESHOLDS)):
-        prev = series.step(prev, k, MD2)
-    assert any(st.get("driver") == "host-groups"
-               for st in series.per_step_stats)
     want, _ = _run_series(blobs, fe, monkeypatch, "0")
     np.testing.assert_array_equal(prev, want[-1])
 
 
 @pytest.mark.parametrize("plan", ["0", "1"])
 def test_precompile_compile_only(blobs, fe, monkeypatch, plan):
-    """compile_only precompile (the during-NN early warm, run with an
-    ESTIMATED max_dist2) must never execute or perturb anything: results
+    """The compile-only precompile (also the during-NN early warm, run
+    with an ESTIMATED max_dist2) must never execute or perturb anything:
+    results
     stay bit-equal to the host-planned reference run, even when the
     estimate misses the real threshold slightly."""
     monkeypatch.setenv("CLUSTERING_TPU_DEVICE_PLAN", plan)
     series = ops.screening.ThresholdSeriesScreener(
         blobs, fe, [np.float32(t) for t in THRESHOLDS],
         row_block=RB, col_block=CB, backend="pallas")
-    series.precompile(np.float32(MD2 * 1.07), compile_only=True)
-    series.precompile(MD2, compile_only=True)
+    series.precompile(np.float32(MD2 * 1.07))
+    series.precompile(MD2)
     prev = None
     for k in range(len(THRESHOLDS)):
         prev = series.step(prev, k, MD2)
-    want, _ = _run_series(blobs, fe, monkeypatch, "0")
-    np.testing.assert_array_equal(prev, want[-1])
-
-
-def test_precompile_compile_only_host_groups(blobs, fe, monkeypatch):
-    """compile_only warm of the host-groups programs (lower().compile()
-    on the group/union programs) must not perturb results."""
-    from clustering_tpu.ops import pallas_kernels as pk
-    monkeypatch.setattr(pk, "DISPATCH_CHUNK_GROUP", 1)
-    monkeypatch.setattr(ops.screening.ScreeningEngine,
-                        "BIDIR_UNION_VMEM", CB * 4 * 8)
-    monkeypatch.setenv("CLUSTERING_TPU_DEVICE_PLAN", "1")
-    series = ops.screening.ThresholdSeriesScreener(
-        blobs, fe, [np.float32(t) for t in THRESHOLDS],
-        row_block=RB, col_block=CB, backend="pallas")
-    series.precompile(MD2, compile_only=True)
-    prev = None
-    for k in range(len(THRESHOLDS)):
-        prev = series.step(prev, k, MD2)
-    assert any(st.get("driver") == "host-groups"
-               for st in series.per_step_stats)
     want, _ = _run_series(blobs, fe, monkeypatch, "0")
     np.testing.assert_array_equal(prev, want[-1])

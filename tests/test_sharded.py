@@ -128,7 +128,7 @@ def _series_inputs(blobs):
 def test_threshold_series_mesh_matches_single_chip(mesh8, blobs, backend):
     """The production multi-chip series path (ThresholdSeriesScreener +
     mesh + pallas, incremental row_lo tile lists) must reproduce the
-    single-chip series exactly (VERDICT round-1 item 5)."""
+    single-device series exactly."""
     from clustering_tpu.ops.screening import ThresholdSeriesScreener
     fe, nn, max_dist2 = _series_inputs(blobs)
     thresholds = [np.float32(t) for t in (0.1, 0.3, 0.6)]
@@ -177,52 +177,12 @@ def test_threshold_series_mesh_step_submit(mesh8, blobs, backend):
                                           err_msg=f"threshold {k}")
 
 
-def test_threshold_series_mesh_pallas_host_driven(mesh8, blobs,
-                                                  monkeypatch):
-    """Force tiny dispatch groups and tile chunks so the mesh pallas path
-    takes the host-driven bounded-dispatch fixpoint (the safety valve the
-    single-chip path grew in ef787f5)."""
-    from clustering_tpu.ops import pallas_kernels as pk
-    from clustering_tpu.ops import pruning
-    from clustering_tpu.ops.screening import ThresholdSeriesScreener
-    fe, nn, max_dist2 = _series_inputs(blobs)
-    thresholds = [np.float32(t) for t in (0.3, 0.6)]
-    single = ThresholdSeriesScreener(blobs, fe, thresholds,
-                                     row_block=8, col_block=16,
-                                     backend="xla")
-    want = []
-    c = None
-    for k in range(len(thresholds)):
-        c = single.step(c, k, max_dist2)
-        want.append(c)
-    monkeypatch.setattr(pk, "DISPATCH_CHUNK_GROUP", 2)
-    orig_split = pruning.split_tiles_balanced
-    monkeypatch.setattr(
-        pruning, "split_tiles_balanced",
-        lambda ti, tj, n_dev, pad_mode="repeat", max_entries=None:
-            orig_split(ti, tj, n_dev, pad_mode=pad_mode, max_entries=8))
-    from clustering_tpu.parallel import sharded as sh
-    host_calls = []
-    orig_host = sh._sparse_fixpoint_host_mesh
-    monkeypatch.setattr(
-        sh, "_sparse_fixpoint_host_mesh",
-        lambda *a, **k: host_calls.append(1) or orig_host(*a, **k))
-    meshed = ThresholdSeriesScreener(blobs, fe, thresholds,
-                                     row_block=8, col_block=16,
-                                     backend="pallas", mesh=mesh8)
-    c = None
-    for k in range(len(thresholds)):
-        c = meshed.step(c, k, max_dist2)
-        np.testing.assert_array_equal(want[k], c, err_msg=f"threshold {k}")
-    assert host_calls, "host-driven mesh fixpoint was never exercised"
-
-
 @pytest.mark.parametrize("prune", [True, False])
 def test_engine_mesh_populations(mesh8, blobs, prune):
-    """DensityEngine(mesh=...) must reuse the single-chip planning (bbox
-    planes, per-tile radius bitmask, bidir closure) and dispatch the
-    SAME tile list over the mesh — results exactly equal to the
-    single-chip engine."""
+    """DensityEngine(mesh=...) must reuse the single-device planning
+    (bbox planes, per-tile radius bitmask) and dispatch the SAME tile
+    list over the mesh -- results exactly equal to the single-device
+    engine, every computed tile dealt to exactly one device."""
     radii = [0.3, 0.7]
     single = ops.engine.DensityEngine(blobs, row_block=8, col_block=16,
                                       backend="pallas")
@@ -232,8 +192,10 @@ def test_engine_mesh_populations(mesh8, blobs, prune):
     got = meshed.populations(radii, prune=prune)
     for r in radii:
         np.testing.assert_array_equal(want[r], got[r])
-    assert meshed.last_stats["populations"]["mode"].endswith("-mesh")
-    assert meshed.last_stats["populations"]["mesh_devices"] == 8
+    st = meshed.last_stats["populations"]
+    assert st["mesh_devices"] == 8
+    assert sum(st["per_device_tiles"]) == st["computed_tiles"]
+    assert max(st["per_device_tiles"]) - min(st["per_device_tiles"]) <= 1
 
 
 def test_engine_mesh_nearest_neighbors(mesh8, blobs):
@@ -258,10 +220,9 @@ def test_engine_mesh_nearest_neighbors(mesh8, blobs):
 
 
 def test_engine_mesh_nn_tiered(mesh8, blobs):
-    """The tiered BIDIRECTIONAL phase 2 under a mesh: the (tier,
-    spatial) re-sorted layout is mesh-replicated and its sweep dispatches
-    through the balanced shard_map programs — exact results, tiered mode
-    recorded."""
+    """Tiered phase 2 requested under a mesh: the tiered cross sweep is
+    single-device, so the mesh keeps the block-bound phase 2 -- and both
+    land on exactly the single-device tiered result."""
     pops = ops.populations(blobs, [0.4], row_block=32, col_block=64)[0.4]
     fe = ops.free_energies(pops)
     qs = (0.5, 0.9)
@@ -272,7 +233,7 @@ def test_engine_mesh_nn_tiered(mesh8, blobs):
     want = single.nearest_neighbors(fe, tier_qs=qs)
     got = meshed.nearest_neighbors(fe, tier_qs=qs)
     assert single.last_stats["nn"]["mode"] == "tiered"
-    assert meshed.last_stats["nn"]["mode"] == "tiered"
+    assert meshed.last_stats["nn"]["mode"] == "block-bound"
     np.testing.assert_array_equal(want[0], got[0])
     np.testing.assert_array_equal(want[2], got[2])
     np.testing.assert_allclose(want[1], got[1], rtol=1e-6)
@@ -285,71 +246,10 @@ def test_engine_mesh_nn_tiered(mesh8, blobs):
         np.testing.assert_array_equal(got[i], plain[i])
 
 
-def test_engine_mesh_nn_speculative_tiered(mesh8, blobs, monkeypatch):
-    """The auto-tiered SPECULATIVE plan under a mesh (the 1M-frame
-    production path, thresholds lowered to fixture size): the tiered
-    mask rides the same fused fetch as the activity planes, the second
-    call speculates on the previous winner and must record a spec hit —
-    results exactly equal to the plain single-chip engine."""
-    eng_cls = ops.engine.DensityEngine
-    pops = ops.populations(blobs, [0.4], row_block=32, col_block=64)[0.4]
-    fe = ops.free_energies(pops)
-    want = eng_cls(blobs, row_block=8, col_block=16,
-                   backend="pallas").nearest_neighbors(fe)
-    monkeypatch.setattr(eng_cls, "TIERED_MIN_FRAMES", 64)
-    monkeypatch.setattr(eng_cls, "TIERED_MIN_SAVED_PAIRS", 0)
-    meshed = eng_cls(blobs, row_block=8, col_block=16, backend="pallas",
-                     mesh=mesh8)
-    got1 = meshed.nearest_neighbors(fe)   # speculates on the band order
-    got2 = meshed.nearest_neighbors(fe)   # speculates on call 1's winner
-    assert meshed.last_stats["nn"].get("spec_hit"), meshed.last_stats["nn"]
-    for got in (got1, got2):
-        np.testing.assert_array_equal(want[0], got[0])
-        np.testing.assert_array_equal(want[2], got[2])
-        np.testing.assert_allclose(want[1], got[1], rtol=1e-6)
-        np.testing.assert_allclose(want[3], got[3], rtol=1e-6)
-
-
-def test_engine_mesh_pops_bidir_partitioned(mesh8, blobs, monkeypatch):
-    """Above the per-chip column-accumulator budget the mesh bidir pops
-    sweep splits into column-range partitions (each window's psum-merged
-    accumulator composed on device) — same results, no frame-count cap."""
-    eng = ops.engine.DensityEngine(blobs, row_block=8, col_block=16,
-                                   backend="pallas", mesh=mesh8)
-    monkeypatch.setattr(type(eng), "POPS_BIDIR_SCRATCH_CAP", 4)
-    want = ops.populations(blobs, [0.3], row_block=8, col_block=16)
-    got = eng.populations([0.3])
-    np.testing.assert_array_equal(want[0.3], got[0.3])
-    stats = eng.last_stats["populations"]
-    assert stats["mode"] == "bidir-mesh"
-    assert stats["col_partitions"] > 1
-    # every computed tile lands in exactly one window exactly once
-    assert sum(stats["per_device_tiles"]) == stats["computed_tiles"]
-
-
-def test_engine_mesh_nn_bidir_partitioned(mesh8, blobs, monkeypatch):
-    """The mesh bidirectional NN sweep with a forced tiny scratch budget:
-    per-window two-step pmin merges folded through the lexicographic min
-    must equal the single-chip result exactly."""
-    eng_cls = ops.engine.DensityEngine
-    pops = ops.populations(blobs, [0.4], row_block=32, col_block=64)[0.4]
-    fe = ops.free_energies(pops)
-    want = eng_cls(blobs, row_block=8, col_block=16,
-                   backend="pallas").nearest_neighbors(fe)
-    monkeypatch.setattr(eng_cls, "NN_BIDIR_SCRATCH_CAP", 4)
-    meshed = eng_cls(blobs, row_block=8, col_block=16,
-                     backend="pallas", mesh=mesh8)
-    got = meshed.nearest_neighbors(fe)
-    np.testing.assert_array_equal(want[0], got[0])
-    np.testing.assert_array_equal(want[2], got[2])
-    np.testing.assert_allclose(want[1], got[1], rtol=1e-6)
-    np.testing.assert_allclose(want[3], got[3], rtol=1e-6)
-
-
 def test_balanced_tile_split_on_skewed_data(mesh8):
     """Spatially-skewed data concentrates active tiles in few row blocks;
-    the balanced splitter must still hand every device an equal share
-    (VERDICT round-1 item 4)."""
+    the balanced splitter must still hand every device an equal
+    share."""
     from clustering_tpu.ops import pruning
     rng = np.random.default_rng(5)
     # 90% of frames in one tight cluster -> most tiles in one corner
@@ -378,12 +278,11 @@ def test_balanced_tile_split_on_skewed_data(mesh8):
     assert row_counts.max() > 2 * max(int(row_counts.min()), 1)
 
 
-# -- production-scale mesh parity (VERDICT round-1 weak item 8) ------------
+# -- production-scale mesh parity ---------------------------------------------
 #
-# 20k frames with production-shaped tile grids: the tile-list bucket
-# quantization (pruning.MAX_TILE_ENTRIES chunking), per-device balanced
-# padding and the incremental series path all engage together at this
-# size, unlike the few-hundred-frame fixtures above.
+# 20k frames with production-shaped tile grids: long padded tile lists,
+# per-device balanced padding and the incremental series path all engage
+# together at this size, unlike the few-hundred-frame fixtures above.
 
 
 @pytest.fixture(scope="module")
@@ -404,9 +303,9 @@ def big_fe(big_blobs):
 
 
 def test_sharded_populations_production_scale(mesh8, big_blobs):
-    """Multi-chunk tile lists (>MAX_TILE_ENTRIES entries) through the mesh:
-    (32, 64) blocks give a 640x320 tile grid whose active list spans
-    several 2^16-entry chunks per device."""
+    """Long tile lists through the mesh: (32, 64) blocks give a 640x320
+    tile grid whose active list runs to tens of thousands of entries
+    per device."""
     radii = [0.2, 0.35]
     single = ops.populations(big_blobs, radii, row_block=32, col_block=64)
     sharded = parallel.sharded.populations(big_blobs, radii, mesh8,
@@ -419,8 +318,6 @@ def test_sharded_populations_production_scale(mesh8, big_blobs):
         # between the single-chip and sharded programs. Require any
         # divergence to be exactly that class: off-by-one counts on a
         # tiny fraction of frames, each with a pair within 2 ulp of r^2.
-        # (On TPU both paths run the same two-rounding kernel arithmetic
-        # and are exact.)
         assert len(diff) <= 4, f"r={r}: {len(diff)} frames differ"
         r2 = np.float32(r) * np.float32(r)
         for i in diff:
@@ -468,13 +365,12 @@ def test_series_mesh_production_scale(mesh8, big_blobs, big_fe):
 
 
 def test_engine_mesh_device_plan_bit_equal(mesh8, blobs, monkeypatch):
-    """Round-5 mesh unification: with device planning FORCED under the
-    mesh (CLUSTERING_TPU_DEVICE_PLAN=1), masks and per-window tile lists
-    stay on device and are round-robin dealt over the chips there
+    """With device planning FORCED under the mesh
+    (CLUSTERING_TPU_DEVICE_PLAN=1), the pops mask and tile list stay on
+    device and are round-robin dealt over the devices there
     (pruning.tile_list_device_split) -- pops counts and NN indices must
-    equal the single-chip engine bit-for-bit, through forced multi-window
-    scratch caps. The reference's multi-GPU driver runs the full
-    algorithm per device the same way
+    equal the single-device engine bit-for-bit. The reference's
+    multi-GPU driver runs the full algorithm per device the same way
     (src/density_clustering_cuda.cu:139-182)."""
     eng_cls = ops.engine.DensityEngine
     radii = [0.3, 0.7]
@@ -484,17 +380,13 @@ def test_engine_mesh_device_plan_bit_equal(mesh8, blobs, monkeypatch):
     want_nn = single.nearest_neighbors(fe)
 
     monkeypatch.setenv("CLUSTERING_TPU_DEVICE_PLAN", "1")
-    # tiny caps force >1 column window so the split windowed route runs
-    monkeypatch.setattr(eng_cls, "POPS_BIDIR_SCRATCH_CAP",
-                        16 * 4 * len(radii) * 2)
-    monkeypatch.setattr(eng_cls, "NN_BIDIR_SCRATCH_CAP", 16 * 16 * 2)
     meshed = eng_cls(blobs, row_block=8, col_block=16,
                      backend="pallas", mesh=mesh8)
     got_p = meshed.populations(radii)
     for r in radii:
         np.testing.assert_array_equal(want_p[r], got_p[r])
     st = meshed.last_stats["populations"]
-    assert st["plan"] == "device" and st["mode"] == "bidir-mesh", st
+    assert st["plan"] == "device", st
     assert st["mesh_devices"] == 8
 
     got_nn = meshed.nearest_neighbors(fe, band_blocks=1)
@@ -502,5 +394,3 @@ def test_engine_mesh_device_plan_bit_equal(mesh8, blobs, monkeypatch):
     np.testing.assert_array_equal(want_nn[2], got_nn[2])
     np.testing.assert_allclose(want_nn[1], got_nn[1], rtol=1e-6)
     np.testing.assert_allclose(want_nn[3], got_nn[3], rtol=1e-6)
-    assert meshed.last_stats["nn"].get("plan") == "device", \
-        meshed.last_stats["nn"]
