@@ -89,7 +89,7 @@ def _tiered_layout(coords_t, fe_w, tier_w, cmin, cmax, taus, row_block,
     re-upload of the frame matrix.
 
     Returns (rows_t (D, N_pad) permuted, fe_rows (N_pad,), perm_rows,
-    active words (nrb, ceil(ncb/32)) uint32)."""
+    active (nrb, ncb) bool)."""
     n_dim, n_pad = coords_t.shape
     # stable argsort by tier keeps spatial order inside each tier (no
     # composite key: tier * n_pad + pos overflowed int32 past ~429M
@@ -116,7 +116,23 @@ def _tiered_layout(coords_t, fe_w, tier_w, cmin, cmax, taus, row_block,
     blk_bound = bounds[jnp.minimum(tiers_p.max(axis=1), n_tiers - 1)]
     has_real = tiers_p.min(axis=1) < n_tiers
     active = (d2b <= blk_bound[:, None]) & has_real[:, None]
-    return rows_t, fe_rows, perm_rows, pruning.pack_mask_words(active)
+    return rows_t, fe_rows, perm_rows, active
+
+
+@functools.partial(jax.jit, static_argnames=("band_order",))
+def _nn_acts_device(d2b_a, d2b_b, row_ub_2, band, band_order):
+    """Device twin of the NN phase-2 selection inputs: each candidate
+    order's activity plane (bbox bound <= its row block's upper bound),
+    the band order's minus the band tiles already swept, and each
+    plane's tile count -- the host planner's work metric, compared
+    exactly as integers. Returns (plane_a, plane_b, counts (2,))."""
+    acts = [d2b_a <= row_ub_2[0][:, None], d2b_b <= row_ub_2[1][:, None]]
+    acts[band_order] = acts[band_order] & ~band
+    return acts[0], acts[1], jnp.stack(
+        [jnp.sum(a, dtype=jnp.int32) for a in acts])
+
+
+_NN_ORDERS = ("dim0", "morton")
 
 
 @jax.jit
@@ -502,19 +518,33 @@ class DensityEngine:
             fe2d = jnp.zeros((1, n_pad), jnp.float32)
             oid2d = jnp.zeros((1, n_pad), jnp.int32)
             perm0 = jnp.zeros((n_pad,), jnp.int32)
+            dev_plan = self._nn_device_plan_on()
             if ncb > 2 * band_blocks:
                 # the band tile list is fe-independent: exact shape
-                tiles = pruning.tile_list(pruning.band_mask(
-                    nrb, ncb, rb, cb, band_blocks * cb))
-                z = np.zeros_like(tiles[0])
+                if dev_plan:
+                    band = pruning.band_mask_device(nrb, ncb, rb, cb,
+                                                    band_blocks * cb)
+                    tiles = pruning.tile_list_device(
+                        band, pruning.tile_count_device(band))
+                else:
+                    tiles = pruning.tile_list(pruning.band_mask(
+                        nrb, ncb, rb, cb, band_blocks * cb))
+                z = jnp.zeros_like(tiles[0])
                 pk.nn_sweep(coords0, fe2d, coords0, fe2d, oid2d,
                             np.int32(n), z, z, row_block=rb, col_block=cb)
-            # bound reduction + packed planes
+            # bound reduction + activity planes
             _row_ub2(jnp.zeros((2, n_pad), jnp.float32), perm0, perm0,
                      row_block=rb)
-            pruning._pack_le_rows2(jnp.zeros((nrb, ncb), jnp.float32),
-                                   jnp.zeros((nrb, ncb), jnp.float32),
-                                   jnp.zeros((2, nrb), jnp.float32))
+            z2 = jnp.zeros((nrb, ncb), jnp.float32)
+            ub0 = jnp.zeros((2, nrb), jnp.float32)
+            if dev_plan:
+                for idx in range(len(_NN_ORDERS)):
+                    _nn_acts_device(z2, z2, ub0,
+                                    jnp.zeros((nrb, ncb), jnp.bool_),
+                                    band_order=idx)
+            else:
+                pruning._pack_le_rows2(z2, z2, ub0)
+                pruning.pack_mask_words(jnp.zeros((nrb, ncb), jnp.bool_))
             # tiered plan programs
             n_tiers = len(self.TIER_QS_DEFAULT) + 1
             _ub_tiers(jnp.zeros((2, n_pad), jnp.float32), jnp.int32(n),
@@ -979,28 +1009,31 @@ class DensityEngine:
         stats["t_host"] = time.perf_counter() - t_host0
         return out
 
-    def _nn_sweep(self, order_name, fe_dev, oid_dev, active):
+    def _nn_sweep(self, order_name, fe_dev, oid_dev, active, n_tiles=None):
         """Run the NN kernel over the active tiles of ``order_name``'s
-        layout. Under a mesh the SAME tile list is round-robin balanced
-        over the devices and swept under shard_map (parallel/sharded.py);
-        partial results merge with the two-step lexicographic pmin, so
-        the return contract ((2, N_pad) d, (2, N_pad) j) is identical."""
+        layout: ``active`` is a host mask, or (device planning, with
+        ``n_tiles`` its tile count) a device mask listed on the device.
+        Under a mesh the SAME tile list is round-robin balanced over the
+        devices and swept under shard_map (parallel/sharded.py); partial
+        results merge with the two-step lexicographic pmin, so the return
+        contract ((2, N_pad) d, (2, N_pad) j) is identical."""
         from . import pallas_kernels as pk
         coords = self._device(order_name)
         if self.mesh is not None:
             return self._nn_dispatch_mesh(coords, fe_dev, oid_dev, active)
-        tiles = pruning.tile_list(active)
+        tiles = (pruning.tile_list(active) if n_tiles is None
+                 else pruning.tile_list_device(active, n_tiles))
         return pk.nn_sweep(coords, fe_dev, coords, fe_dev, oid_dev,
                            np.int32(self.n), tiles[0], tiles[1],
                            row_block=self.row_block,
                            col_block=self.col_block)
 
     # big-N device planning: above this padded frame count the host
-    # planners' (nrb, ncb) boolean masks and np.nonzero passes dominate
-    # the populations stage, so its masks stay ON DEVICE and tile lists
-    # compact there (pruning.tile_list_device); only the scalar tile
-    # count crosses to the host. CLUSTERING_TPU_DEVICE_PLAN=1/0 forces it
-    # on/off (tests pin bit-equality against the host planner).
+    # planners' (nrb, ncb) boolean masks and np.nonzero passes grow with
+    # N^2 / tile, so the populations and NN masks stay ON DEVICE and
+    # tile lists compact there (pruning.tile_list_device); only scalar
+    # tile counts cross to the host. CLUSTERING_TPU_DEVICE_PLAN=1/0
+    # forces it on/off (tests pin bit-equality against the host planner).
     DEVICE_PLAN_MIN_FRAMES = 1 << 22
 
     def _device_plan_on(self):
@@ -1010,6 +1043,11 @@ class DensityEngine:
         if env == "1":
             return True
         return self.n_pad >= self.DEVICE_PLAN_MIN_FRAMES
+
+    def _nn_device_plan_on(self):
+        """The NN stage plans on the device on one device (a mesh deals
+        a host list over its devices)."""
+        return self.mesh is None and self._device_plan_on()
 
     def _band_prefetch_ok(self):
         """The NN band prefetch dispatches device programs from a daemon
@@ -1026,31 +1064,47 @@ class DensityEngine:
     def _nn_band_dispatch(self, order_name, band_blocks, layout):
         """Dispatch every device program of the NN band phase with NO
         host sync: the banded sweep over sort-neighbor tiles (phase-1
-        upper bounds), the per-row-block bound reduction and the packed
-        activity planes for both candidate orders. Returns the handles
-        the selection half consumes; shared by nearest_neighbors' inline
-        path and the populations band prefetch (which overlaps all of
-        this with the counts download and inter-stage host work)."""
+        upper bounds), the per-row-block bound reduction and the
+        activity planes for both candidate orders -- packed for the
+        download (host planning), or kept on the device with their tile
+        counts (device planning; the only sync is the band's tile
+        count). Returns the handles the selection half consumes; shared
+        by nearest_neighbors' inline path and the populations band
+        prefetch (which overlaps all of this with the counts download
+        and inter-stage host work)."""
         n_pad = self.n_pad
         rb, cb = self.row_block, self.col_block
         nrb, ncb = n_pad // rb, n_pad // cb
         _, _, fe_dev, oid_dev = layout(order_name)
+        dev_plan = self._nn_device_plan_on()
         # phase 1: banded pass over sort-neighbors -> per-frame upper
         # bounds (order-independent values)
-        band_active = pruning.band_mask(nrb, ncb, rb, cb, band_blocks * cb)
-        out1 = self._nn_sweep(order_name, fe_dev, oid_dev, band_active)
+        if dev_plan:
+            band_active = pruning.band_mask_device(nrb, ncb, rb, cb,
+                                                   band_blocks * cb)
+            band_tiles = pruning.tile_count_device(band_active)
+            out1 = self._nn_sweep(order_name, fe_dev, oid_dev, band_active,
+                                  n_tiles=band_tiles)
+        else:
+            band_active = pruning.band_mask(nrb, ncb, rb, cb,
+                                            band_blocks * cb)
+            band_tiles = int(band_active.sum())
+            out1 = self._nn_sweep(order_name, fe_dev, oid_dev, band_active)
         # keep the per-frame bounds on device; per candidate order,
-        # permute + reduce there and download only the packed activity
-        # planes of both orders in one fetch
+        # permute + reduce there
         row_ubs_dev = _row_ub2(
             out1[0], self._ub_perm(order_name, "dim0"),
             self._ub_perm(order_name, "morton"), row_block=rb)
-        acts_words = pruning._pack_le_rows2(
-            self._d2b_dev("dim0"), self._d2b_dev("morton"), row_ubs_dev)
+        d2b = [self._d2b_dev(nm) for nm in _NN_ORDERS]
+        if dev_plan:
+            acts = _nn_acts_device(d2b[0], d2b[1], row_ubs_dev, band_active,
+                                   band_order=_NN_ORDERS.index(order_name))
+        else:
+            # both orders' packed planes in one dispatch and one fetch
+            acts = pruning._pack_le_rows2(d2b[0], d2b[1], row_ubs_dev)
         return {"order_name": order_name, "band_blocks": band_blocks,
-                "band_active": band_active,
-                "band_tiles": int(band_active.sum()),
-                "out1": out1, "acts_words": acts_words}
+                "band_active": band_active, "band_tiles": band_tiles,
+                "out1": out1, "acts": acts, "dev_plan": dev_plan}
 
     def _prefetch_nn_band(self, fe_sorted, band_blocks=4):
         """Dispatch the NN band phase ahead of nearest_neighbors from a
@@ -1199,13 +1253,20 @@ class DensityEngine:
             self._device(winner), fe_dev_w[0], tier_w,
             jnp.asarray(cmin), jnp.asarray(cmax), taus_dev,
             row_block=rb, n_tiers=n_tiers)
-        # the only host round-trip of the plan: the packed active mask
-        active = pruning.unpack_planes(jax.device_get(active_dev),
-                                       n_pad // self.col_block)
-        n_active = int(active.sum())
+        # the only host round-trip of the plan: the tile count (device
+        # planning) or the packed active mask
+        if self._nn_device_plan_on():
+            active = None
+            n_active = pruning.tile_count_device(active_dev)
+        else:
+            active = pruning.unpack_planes(
+                jax.device_get(pruning.pack_mask_words(active_dev)),
+                n_pad // self.col_block)
+            n_active = int(active.sum())
 
         def run():
-            tiles = pruning.tile_list(active)
+            tiles = (pruning.tile_list(active) if active is not None
+                     else pruning.tile_list_device(active_dev, n_active))
             if tiles is None:
                 return None
             outk = pk.nn_sweep(
@@ -1308,7 +1369,8 @@ class DensityEngine:
         out_idx_dev = None
         stats = {"effective_pairs": float(n) * n,
                  "tile_pairs": self.row_block * self.col_block,
-                 "band_tiles": 0, "phase2_tiles": 0, "mode": "dense"}
+                 "band_tiles": 0, "phase2_tiles": 0, "mode": "dense",
+                 "plan": "device" if self._nn_device_plan_on() else "host"}
         # sub-stage wall clocks (each segment ends at a host sync, so the
         # deltas are real): band = banded pass + activity readback, plan
         # = phase-2 planning incl. tiered-mask readback, sweep = phase-2
@@ -1330,26 +1392,26 @@ class DensityEngine:
             out1 = bd["out1"]
             stats["band_tiles"] = bd["band_tiles"]
             tile_pairs = self.row_block * self.col_block
-            acts = pruning.unpack_planes(self._get(bd["acts_words"]), ncb)
-            best = None
-            for idx, name in enumerate(("dim0", "morton")):
-                act = acts[idx]
-                work = float((act & ~band_active).mean()
-                             if name == order_name else act.mean())
-                if best is None or work < best[0]:
-                    best = (work, name, act)
+            # the band's minima are exact within its tiles and the merge
+            # is an idempotent lexicographic min: the band order's plane
+            # skips re-sweeping them and the band result folds in after.
+            # Pick the order with less remaining work (first on a tie).
+            if bd["dev_plan"]:
+                counts = self._get(bd["acts"][2])
+                idx = int(np.argmin(counts))
+                active, block_tiles = bd["acts"][idx], int(counts[idx])
+            else:
+                acts = pruning.unpack_planes(self._get(bd["acts"]), ncb)
+                acts[_NN_ORDERS.index(order_name)] &= ~band_active
+                counts = acts.sum(axis=(1, 2))
+                idx = int(np.argmin(counts))
+                active, block_tiles = acts[idx], int(counts[idx])
             band_name, band_out = order_name, out1
             stats["t_band"] = time.perf_counter() - t0
             t0 = time.perf_counter()
-            _, order_name, active = best
+            order_name = _NN_ORDERS[idx]
             stats["order"] = order_name
             order, padded, fe_dev, oid_dev = layout(order_name)
-            if order_name == band_name:
-                # the band's minima are exact within its tiles and the
-                # merge is an idempotent lexicographic min: skip
-                # re-sweeping them and fold the band result in after
-                active = active & ~band_active
-            block_tiles = int(active.sum())
             plan = None
             # planning the tiered layout itself costs dispatches + a mask
             # readback, so only plan when even a typical-best (~3.5x on
@@ -1384,8 +1446,11 @@ class DensityEngine:
             stats["phase2_tiles"] = int(active.sum())
         if stats["mode"] != "tiered":
             merge_band = band_out is not None and order_name == band_name
-            out = (self._nn_sweep(order_name, fe_dev, oid_dev, active)
-                   if active.any() else None)
+            n_dev_tiles = (stats["phase2_tiles"]
+                           if isinstance(active, jax.Array) else None)
+            out = (self._nn_sweep(order_name, fe_dev, oid_dev, active,
+                                  n_tiles=n_dev_tiles)
+                   if stats["phase2_tiles"] else None)
             if merge_band and out is not None:
                 # lexicographic merge on device: one download vs three
                 out = _lex_merge(band_out[0], band_out[1], out[0], out[1])

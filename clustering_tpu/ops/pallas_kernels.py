@@ -26,11 +26,11 @@ frame and one block per row tile):
     reference kernel (:46). There is no matrix product, so TF32 never
     enters (see ops/pairwise.py for why the ||x||^2 + ||y||^2 - 2xy
     identity is rejected).
-  * The bidirectional label sweep (static ``bidir``) evaluates each
-    unordered pair once over an upper-triangular tile list: the row side
-    reduces in registers, the column side goes straight to a full-length
-    output with int32 ``atomic_min``, which commutes, so results stay
-    exact and deterministic. Population counts sweep the full tile list:
+  * The label sweep is bidirectional: it evaluates each unordered pair
+    once over an upper-triangular tile list; the row side reduces in
+    registers, the column side goes straight to a full-length output
+    with int32 ``atomic_min``, which commutes, so results stay exact and
+    deterministic. Population counts sweep the full tile list:
     their column side would need ``atomic_add``, which lost updates in
     this Triton build and saved only 3% when measured at 2^20 frames.
   * Every ``pallas_call`` names the Triton route; on the CPU (tests) the
@@ -332,12 +332,8 @@ def nn_sweep(rows_t, fe_rows, cols_t, fe_cols, orig_ids, n_valid, tile_i,
 # ---------------------------------------------------------------------------
 
 def _label_kernel(sc_ref, md2_ref, off_ref, tj_ref, dcol_ref, drow_ref,
-                  x_ref, y_ref, lab_ref, *rest, row_block, col_block, sub,
-                  n_dim, bidir, masked_atomics):
-    if bidir:
-        _, out_ref, col_ref = rest
-    else:
-        (out_ref,) = rest
+                  x_ref, y_ref, lab_ref, _col_in_ref, out_ref, col_ref, *,
+                  row_block, col_block, sub, n_dim, masked_atomics):
     i = pl.program_id(0)
     start = off_ref[i]
     row0 = i * row_block
@@ -346,9 +342,8 @@ def _label_kernel(sc_ref, md2_ref, off_ref, tj_ref, dcol_ref, drow_ref,
     xs = [x_ref[k, pl.ds(row0, row_block)] for k in range(n_dim)]
     row_ok = (row0 + jax.lax.broadcasted_iota(
         jnp.int32, (row_block, 1), 0)) < n_below
-    if bidir:
-        lab_x = lab_ref[pl.ds(row0, row_block)][:, None]
-        row_dirty = drow_ref[i] != 0
+    lab_x = lab_ref[pl.ds(row0, row_block)][:, None]
+    row_dirty = drow_ref[i] != 0
 
     def tile(t, m):
         j = tj_ref[t]
@@ -362,20 +357,18 @@ def _label_kernel(sc_ref, md2_ref, off_ref, tj_ref, dcol_ref, drow_ref,
                 adj = (d2 < md2) & (col_ids < n_below) & row_ok
                 lab_y = lab_ref[pl.ds(c0, sub)][None, :]
                 m = jnp.minimum(m, jnp.where(adj, lab_y, _IMAX))
-                if bidir:
-                    cm = jnp.min(jnp.where(adj, lab_x, _IMAX), axis=0)
-                    plgpu.atomic_min(
-                        col_ref, (pl.ds(c0, sub),), cm,
-                        mask=(cm != _IMAX) if masked_atomics else None)
+                cm = jnp.min(jnp.where(adj, lab_x, _IMAX), axis=0)
+                plgpu.atomic_min(
+                    col_ref, (pl.ds(c0, sub),), cm,
+                    mask=(cm != _IMAX) if masked_atomics else None)
                 return m
 
             return jax.lax.fori_loop(0, col_block // sub, step, m)
 
-        # a tile whose labels did not change since the previous sweep can
-        # only re-propose equivalences already folded into the union
-        dirty = dcol_ref[j] != 0
-        if bidir:
-            dirty = dirty | row_dirty
+        # a tile whose row and column labels did not change since the
+        # previous sweep can only re-propose equivalences already folded
+        # into the union
+        dirty = (dcol_ref[j] != 0) | row_dirty
         return jax.lax.cond(dirty & _not_repeat(tj_ref, t, start), sweep,
                             lambda a: a, m)
 
@@ -385,21 +378,23 @@ def _label_kernel(sc_ref, md2_ref, off_ref, tj_ref, dcol_ref, drow_ref,
     out_ref[pl.ds(row0, row_block)] = jnp.min(m, axis=1)
 
 
-@functools.partial(jax.jit, static_argnames=("bidir", "row_block",
-                                             "col_block"))
+@functools.partial(jax.jit, static_argnames=("row_block", "col_block"))
 def label_sweep(coords_t, labels, n_below, max_dist2, tile_i, tile_j,
-                dirty_col=None, dirty_row=None, bidir=False,
+                dirty_col=None, dirty_row=None,
                 row_block=DEFAULT_ROW_BLOCK, col_block=DEFAULT_COL_BLOCK):
-    """Neighbor-min label proposals over a row-sorted active-tile list of
-    the FE-ordered frame matrix (repeat-padded lists allowed).
+    """Bidirectional neighbor-min label proposals over a row-sorted
+    active-tile list of the FE-ordered frame matrix (repeat-padded lists
+    allowed).
 
     Frames i, j < n_below are adjacent iff d2(i, j) < max_dist2; each
-    row's proposal is the minimum label over its adjacent columns
-    (IMAX where none). ``dirty_col`` (ncb,) / ``dirty_row`` (nrb,) gate
-    tiles by whether their column (row) block's labels changed since the
-    previous sweep; None sweeps everything. With ``bidir`` the list holds
-    upper-triangular tiles and each tile also proposes its row labels to
-    its columns (the gate is then column OR row dirty).
+    frame's proposal is the minimum label over its adjacent frames
+    (IMAX where none). Each listed tile proposes both ways -- its column
+    labels to its rows and its row labels to its columns -- so an
+    upper-triangular list covers every unordered pair once (a list that
+    also holds the mirror tiles gives the same proposals). ``dirty_col``
+    (ncb,) / ``dirty_row`` (nrb,) gate tiles by whether their column or
+    row block's labels changed since the previous sweep; None sweeps
+    everything.
 
     Returns (N_pad,) int32 proposals to fold into the labels with a
     minimum.
@@ -418,19 +413,16 @@ def label_sweep(coords_t, labels, n_below, max_dist2, tile_i, tile_j,
     interpret = INTERPRET_MODE()
     kernel = functools.partial(
         _label_kernel, row_block=row_block, col_block=col_block, sub=sub,
-        n_dim=n_dim, bidir=bidir, masked_atomics=not interpret)
+        n_dim=n_dim, masked_atomics=not interpret)
     args = [jnp.asarray(n_below, jnp.int32).reshape(1),
             jnp.asarray(max_dist2, jnp.float32).reshape(1),
             _csr(ti, nrb), tj, jnp.asarray(dirty_col, jnp.int32),
-            jnp.asarray(dirty_row, jnp.int32), coords_t, coords_t, labels]
-    out_shape = [jax.ShapeDtypeStruct((n_pad,), jnp.int32)]
-    aliases = {}
-    if bidir:
-        args.append(jnp.full((n_pad,), _IMAX, jnp.int32))
-        out_shape.append(jax.ShapeDtypeStruct((n_pad,), jnp.int32))
-        aliases = {len(args) - 1: 1}
-    outs = pl.pallas_call(
-        kernel, grid=(nrb,), out_shape=out_shape,
-        input_output_aliases=aliases, compiler_params=_params(warps),
-        backend="triton", interpret=interpret, name="label_sweep")(*args)
-    return jnp.minimum(outs[0], outs[1]) if bidir else outs[0]
+            jnp.asarray(dirty_row, jnp.int32), coords_t, coords_t, labels,
+            jnp.full((n_pad,), _IMAX, jnp.int32)]
+    rows, cols = pl.pallas_call(
+        kernel, grid=(nrb,),
+        out_shape=[jax.ShapeDtypeStruct((n_pad,), jnp.int32)] * 2,
+        input_output_aliases={len(args) - 1: 1},
+        compiler_params=_params(warps), backend="triton",
+        interpret=interpret, name="label_sweep")(*args)
+    return jnp.minimum(rows, cols)

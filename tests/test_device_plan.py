@@ -60,10 +60,9 @@ def test_tile_list_pads_keep_rows_sorted():
         assert (tj[n:] == (tj[n - 1] if mode == "repeat" else -1)).all()
 
 
-@pytest.mark.parametrize("row_lo,n_below,triangular",
-                         [(0, 380, False), (0, 380, True), (120, 380, True),
-                          (120, 512, False)])
-def test_screen_active_device_matches_host(row_lo, n_below, triangular):
+@pytest.mark.parametrize("row_lo,n_below",
+                         [(0, 380), (0, 512), (120, 380), (120, 512)])
+def test_screen_active_device_matches_host(row_lo, n_below):
     """The screening device planner's mask algebra (prefix, new-frame
     cross, upper triangle) equals the host planner's on the same plane."""
     from clustering_tpu.ops.screening import _screen_active_device
@@ -74,11 +73,21 @@ def test_screen_active_device_matches_host(row_lo, n_below, triangular):
     want = below & (ri * RB < n_below) & (cj * CB < n_below)
     if row_lo > 0:
         want &= ((ri + 1) * RB > row_lo) | ((cj + 1) * CB > row_lo)
-    if triangular:
-        want &= (cj + 1) * CB > ri * RB
+    want &= (cj + 1) * CB > ri * RB
     got = np.asarray(_screen_active_device(
-        jnp.asarray(below), jnp.int32(n_below), jnp.int32(row_lo), RB, CB,
-        triangular))
+        jnp.asarray(below), jnp.int32(n_below), jnp.int32(row_lo), RB, CB))
+    np.testing.assert_array_equal(want, got)
+
+
+@pytest.mark.parametrize("nrb,ncb,rb,cb,half",
+                         [(64, 8, 8, 64, 128), (64, 8, 8, 64, 0),
+                          (40, 5, 16, 128, 256), (1024, 32, 128, 4096,
+                                                  16384)])
+def test_band_mask_device_matches_host(nrb, ncb, rb, cb, half):
+    """The NN band (phase-1) mask built on the device in integer
+    arithmetic equals the host planner's float mask."""
+    want = pruning.band_mask(nrb, ncb, rb, cb, half)
+    got = np.asarray(pruning.band_mask_device(nrb, ncb, rb, cb, half))
     np.testing.assert_array_equal(want, got)
 
 
@@ -141,6 +150,8 @@ def test_engine_device_plan_bit_equal(blobs, monkeypatch):
     p_host, nn_host, st_host = _run_pipeline(blobs, monkeypatch, "0")
     assert st_dev["populations"].get("plan") == "device"
     assert "plan" not in st_host["populations"]
+    assert st_dev["nn"]["plan"] == "device"
+    assert st_host["nn"]["plan"] == "host"
     assert st_dev["nn"]["band_prefetched"] is True
     for r in p_dev:
         np.testing.assert_array_equal(p_dev[r], p_host[r])
@@ -152,6 +163,7 @@ def test_engine_device_plan_bit_equal(blobs, monkeypatch):
     assert st_dev["nn"]["band_tiles"] == st_host["nn"]["band_tiles"]
     assert st_dev["nn"]["phase2_tiles"] == st_host["nn"]["phase2_tiles"]
     assert st_dev["nn"]["mode"] == st_host["nn"]["mode"]
+    assert st_dev["nn"]["order"] == st_host["nn"]["order"]
 
 
 def test_engine_device_plan_tiered_bit_equal(blobs, monkeypatch):
@@ -164,6 +176,7 @@ def test_engine_device_plan_tiered_bit_equal(blobs, monkeypatch):
     p_dev, nn_dev, st_dev = _run_pipeline(blobs, monkeypatch, "1")
     p_host, nn_host, st_host = _run_pipeline(blobs, monkeypatch, "0")
     assert st_dev["nn"]["mode"] == "tiered" == st_host["nn"]["mode"]
+    assert st_dev["nn"]["plan"] == "device"
     assert st_dev["nn"]["phase2_tiles"] == st_host["nn"]["phase2_tiles"]
     for a, b in zip(nn_dev, nn_host):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

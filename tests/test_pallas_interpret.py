@@ -139,8 +139,8 @@ def test_series_screener_generic_seed_path(blobs):
 
 def test_bidir_screening_matches_symmetric(blobs):
     """The upper-triangular bidirectional fixpoint must produce the same
-    labels as the symmetric-tile fixpoint and the XLA oracle, for both
-    full runs and the incremental (row_lo) series path."""
+    labels as the symmetric XLA fixpoint (every ordered pair swept), for
+    both full runs and the incremental (row_lo) series path."""
     from clustering_tpu.models import density as dm
     from clustering_tpu.ops.screening import (ScreeningEngine,
                                               ThresholdSeriesScreener)
@@ -155,29 +155,23 @@ def test_bidir_screening_matches_symmetric(blobs):
         eng = ScreeningEngine(cs, row_block=8, col_block=16,
                               backend="pallas")
         got = eng.run(labels0, nb, np.float32(t))
-        assert eng.last_stats["mode"] == "bidir"
+        assert eng.last_stats["tiles_per_sweep"] > 0
         np.testing.assert_array_equal(want, got)
-    # series continuation: bidir with incremental row_lo tile lists vs a
-    # symmetric-forced engine
+    # series continuation: incremental row_lo tile lists vs the XLA
+    # series
     thresholds = [np.float32(t) for t in (0.5, 1.0, 2.0)]
     md2 = np.float32(0.08)
     s_b = ThresholdSeriesScreener(blobs, fe, thresholds,
                                   row_block=8, col_block=16,
                                   backend="pallas")
-    s_s = ThresholdSeriesScreener(blobs, fe, thresholds,
+    s_x = ThresholdSeriesScreener(blobs, fe, thresholds,
                                   row_block=8, col_block=16,
-                                  backend="pallas")
-    s_s.engine.LABEL_BIDIR = False
+                                  backend="xla")
     a = b = None
-    modes_b, modes_s = [], []
     for k in range(len(thresholds)):
         a = s_b.step(a, k, md2)
-        b = s_s.step(b, k, md2)
-        modes_b.append(s_b.engine.last_stats.get("mode"))
-        modes_s.append(s_s.engine.last_stats.get("mode"))
+        b = s_x.step(b, k, md2)
         np.testing.assert_array_equal(a, b, err_msg=f"threshold {k}")
-    assert "bidir" in modes_b and "symmetric" not in modes_b
-    assert "symmetric" in modes_s
 
 
 def _bigger_blobs(n=600, seed=5):
@@ -801,10 +795,13 @@ def test_nn_sweep_kernel(case):
                                want_d[:, :200], rtol=2e-7)
 
 
-@pytest.mark.parametrize("bidir", [False, True])
+@pytest.mark.parametrize("upper", [False, True])
 @pytest.mark.parametrize("case", ["full", "prefix", "repeat_pads",
                                   "empty_rows", "dirty_gate"])
-def test_label_sweep_kernel(case, bidir):
+def test_label_sweep_kernel(case, upper):
+    """Each listed tile proposes both ways: an upper-triangular list
+    covers every pair once, a full list (tiles and their mirrors) twice,
+    with the same proposals."""
     from clustering_tpu.ops import pallas_kernels as pk
     x, d2 = _kernel_fixture(seed=47)
     n_pad = x.shape[0]
@@ -816,7 +813,7 @@ def test_label_sweep_kernel(case, bidir):
     labels[:200] = np.minimum(labels[:200],
                               rng.integers(0, 200, 200).astype(np.int32))
     ti, tj, mask = _tiles("empty_rows" if case == "empty_rows" else "full",
-                          nrb, ncb, upper=bidir)
+                          nrb, ncb, upper=upper)
     if case == "repeat_pads":
         ti = np.concatenate([ti, np.full(9, ti[-1], np.int32)])
         tj = np.concatenate([tj, np.full(9, tj[-1], np.int32)])
@@ -826,18 +823,13 @@ def test_label_sweep_kernel(case, bidir):
         dirty_col[[1, 4]] = 0
         dirty_row[::2] = 0
     got = np.asarray(pk.label_sweep(x.T, labels, n_below, md2, ti, tj,
-                                    dirty_col, dirty_row, bidir=bidir,
-                                    row_block=_RB, col_block=_CB))
-    swept = mask.copy()
+                                    dirty_col, dirty_row, row_block=_RB,
+                                    col_block=_CB))
     ri = np.arange(nrb)[:, None]
     cj = np.arange(ncb)[None, :]
-    clean = dirty_col[cj] == 0
-    if bidir:
-        clean = clean & (dirty_row[ri] == 0)
-    swept &= ~clean
+    swept = mask & ~((dirty_col[cj] == 0) & (dirty_row[ri] == 0))
     cover = _pair_mask(swept)
-    if bidir:
-        cover = cover | cover.T
+    cover = cover | cover.T
     ids = np.arange(n_pad)
     adj = ((d2 < md2) & cover & (ids[None, :] < n_below)
            & (ids[:, None] < n_below))

@@ -1,6 +1,6 @@
 """Device-planned screening (CLUSTERING_TPU_DEVICE_PLAN=1) must be
-bit-equal to the host planner, for the bidirectional and the symmetric
-sweep. Big-N planning swaps the implementation, never the plan (the same
+bit-equal to the host planner, with and without hd-edge seeds. Big-N
+planning swaps the implementation, never the plan (the same
 invariant tests/test_device_plan.py pins for the density engine).
 
 Reference: the screening driver runs at any N with ~zero launch cost
@@ -63,16 +63,18 @@ def test_series_device_plan_bit_equal(blobs, fe, monkeypatch):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("bidir", [False, True])
-def test_series_device_plan_matches_xla(blobs, fe, monkeypatch, bidir):
-    """Both planners, with the bidirectional or the symmetric label
-    sweep, land on the XLA oracle's clustering at every threshold."""
-    monkeypatch.setattr(ops.screening.ScreeningEngine, "LABEL_BIDIR",
-                        bidir)
-    got, s_dev = _run_series(blobs, fe, monkeypatch, "1")
-    want, _ = _run_series(blobs, fe, monkeypatch, "0")
-    assert all(st["mode"] == ("bidir" if bidir else "symmetric")
-               for st in s_dev.per_step_stats)
+@pytest.mark.parametrize("seeded", [False, True])
+def test_series_device_plan_matches_xla(blobs, fe, monkeypatch, seeded):
+    """Both planners, cold or seeded from the hd edges, land on the XLA
+    oracle's clustering at every threshold."""
+    hd = None
+    if seeded:
+        nn = ops.nearest_neighbors(blobs, fe, backend="xla",
+                                   row_block=RB, col_block=CB)
+        hd = (np.asarray(nn[2]), np.asarray(nn[3]))
+    got, s_dev = _run_series(blobs, fe, monkeypatch, "1", hd=hd)
+    want, _ = _run_series(blobs, fe, monkeypatch, "0", hd=hd)
+    assert all(st["plan"] == "device" for st in s_dev.per_step_stats)
     xla = ops.screening.ThresholdSeriesScreener(
         blobs, fe, [np.float32(t) for t in THRESHOLDS],
         row_block=RB, col_block=CB, backend="xla")
@@ -106,7 +108,6 @@ def test_engine_run_device_plan_bit_equal(blobs, fe, monkeypatch):
     eng = ops.screening.ScreeningEngine(cs, row_block=RB, col_block=CB,
                                         backend="pallas")
     got = eng.run(labels0, 400, np.float32(0.2))
-    assert eng.last_stats["mode"] == "bidir"
     assert eng.last_stats["plan"] == "device"
     np.testing.assert_array_equal(want, got)
 
